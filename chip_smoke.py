@@ -8,7 +8,8 @@ Phases, each of which must pass (any failure exits non-zero):
 1. setup: a CUDA device is required; prints the card's name and power
    limit and builds the CUDA kernels from the sources in the checkout;
 2. kernels: every kernel of the path, called through its wrapper on the
-   inputs the main path gives it, held against its plain PyTorch version
+   inputs the main path gives it (and on starts outside the image, which
+   the path never produces), held against its plain PyTorch version
    (bit-exact), and timed beside its plain version, one PyTorch library
    call computing the same function, and its bound from bytes;
 3. slice: the fused mono+birdview tracking step (`track_step_mono`) at the
@@ -18,7 +19,9 @@ Phases, each of which must pass (any failure exits non-zero):
    6144-point local map and a 2048-point ground bundle seeded from frame
    0's ground truth — over a rendered drive, chained on the device pose
    chain; then a shorter mono-only run. The kernel counts are zeroed before
-   each run and read after it;
+   each run and read after it. One more frame runs under torch.profiler,
+   which attributes its device kernels to the two extractions, the pose LM
+   and the rest of the step;
 4. reference: the same step on a small input on the CPU and on the GPU,
    which must agree.
 
@@ -28,6 +31,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -125,51 +129,87 @@ def pose_errors(R, t, R_gt, t_gt):
 
 def kernel_phase(img, bev, mask, cfg, bcfg, dev):
     """Hold the patch gather against its plain version on the inputs the
-    extractor gives it for one front and one BEV frame (12 level shapes),
-    and time the frame's 12 gathers."""
+    extractor gives it for one front and one BEV frame (2 calls over 12
+    level shapes) and on starts outside the image, and time the frame's 2
+    gathers."""
     from orbslam_birdview_tpu_torch.frontend import orb, patch_kernel
 
     calls = []
-    launch = patch_kernel.gather_patches
+    launch = patch_kernel.gather_patches_levels
 
-    def record(padded, ys, xs, size):
-        calls.append((padded, ys, xs, size))
-        return launch(padded, ys, xs, size)
+    def record(padded_levels, ys_levels, xs_levels, size):
+        calls.append((padded_levels, ys_levels, xs_levels, size))
+        return launch(padded_levels, ys_levels, xs_levels, size)
 
-    patch_kernel.gather_patches = record
+    patch_kernel.gather_patches_levels = record
     try:
         orb.extract_orb(img, cfg, device=dev)
         orb.extract_orb(bev, bcfg, mask=mask, device=dev)
     finally:
-        patch_kernel.gather_patches = launch
-    check(len(calls) == cfg.n_levels + bcfg.n_levels,
-          f"expected {cfg.n_levels + bcfg.n_levels} gathers, got {len(calls)}")
+        patch_kernel.gather_patches_levels = launch
+    check([len(c[0]) for c in calls] == [cfg.n_levels, bcfg.n_levels],
+          f"expected one gather of {cfg.n_levels} levels and one of "
+          f"{bcfg.n_levels}, got {[len(c[0]) for c in calls]}")
+    # the same calls level by level: (padded, ys, xs, size) per level
+    levels = [lv for pl, yl, xl, size in calls
+              for lv in zip(pl, yl, xl, [size] * len(pl))]
 
-    max_err, shapes, n_bytes = 0.0, [], 0
-    for padded, ys, xs, size in calls:
-        out = launch(padded, ys, xs, size)
-        ref = patch_kernel.gather_patches_plain(padded, ys, xs, size)
+    def hold(padded_levels, ys_levels, xs_levels, size):
+        """Kernel against plain for one call, whole and level by level."""
+        out = launch(padded_levels, ys_levels, xs_levels, size)
+        ref = patch_kernel.gather_patches_levels_plain(
+            padded_levels, ys_levels, xs_levels, size)
         torch.cuda.synchronize()
         check(out.shape == ref.shape, f"shape {out.shape} != {ref.shape}")
-        check(torch.equal(out, ref), f"kernel != plain at {tuple(padded.shape)}")
-        max_err = max(max_err, float((out - ref).abs().max()))
-        shapes.append([*padded.shape, ys.shape[0]])
-        n_bytes += (padded.numel() + 2 * ys.numel()) * 4 + out.numel() * 4
+        check(torch.equal(out, ref), "kernel != plain over "
+              f"{[tuple(p.shape) for p in padded_levels]}")
+        err = float((out - ref).abs().max())
+        parts = out.split([ys.shape[0] for ys in ys_levels])
+        for part, padded, ys, xs in zip(parts, padded_levels, ys_levels,
+                                        xs_levels):
+            one = patch_kernel.gather_patches_plain(padded, ys, xs, size)
+            check(torch.equal(part, one),
+                  f"kernel's slice != plain at level {tuple(padded.shape)}")
+            check(torch.equal(patch_kernel.gather_patches(padded, ys, xs,
+                                                          size), one),
+                  f"one-level kernel != plain at {tuple(padded.shape)}")
+            err = max(err, float((part - one).abs().max()))
+        return err
+
+    max_err = max(hold(*c) for c in calls)
+    # starts past the far edge and negative starts: the clamp
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for padded_levels, ys_levels, _, size in calls:
+        def starts(extent):
+            return [torch.randint(-size, p.shape[extent] + size,
+                                  ys.shape, generator=gen, device=dev,
+                                  dtype=torch.int32)
+                    for p, ys in zip(padded_levels, ys_levels)]
+        ys_out, xs_out = starts(0), starts(1)
+        check(any(bool((y < 0).any()) for y in ys_out)
+              and any(bool((x > p.shape[1] - size).any())
+                      for x, p in zip(xs_out, padded_levels)),
+              "the out-of-range case has no out-of-range start")
+        max_err = max(max_err, hold(padded_levels, ys_out, xs_out, size))
+
+    shapes = [[*padded.shape, ys.shape[0]] for padded, ys, _, _ in levels]
+    n_bytes = sum((padded.numel() + 2 * ys.numel()) * 4
+                  + ys.shape[0] * size * size * 4
+                  for padded, ys, _, size in levels)
 
     def library(padded, ys, xs, size):
         yc, xc = patch_kernel.clamp_starts(padded, ys.long(), xs.long(), size)
         return padded.unfold(0, size, 1).unfold(1, size, 1)[yc, xc]
 
-    for padded, ys, xs, size in calls:
-        check(torch.equal(library(padded, ys, xs, size),
-                          patch_kernel.gather_patches_plain(padded, ys, xs,
-                                                            size)),
+    for lv in levels:
+        check(torch.equal(library(*lv),
+                          patch_kernel.gather_patches_plain(*lv)),
               "library call != plain")
     kernel_ms = cuda_ms(lambda: [launch(*c) for c in calls])
-    plain_ms = cuda_ms(lambda: [patch_kernel.gather_patches_plain(*c)
-                                for c in calls])
-    library_ms = cuda_ms(lambda: [library(*c) for c in calls])
-    # the same 12 launches as the step issues them: host wrapper included
+    plain_ms = cuda_ms(lambda: [patch_kernel.gather_patches_plain(*lv)
+                                for lv in levels])
+    library_ms = cuda_ms(lambda: [library(*lv) for lv in levels])
+    # the same 2 launches as the step issues them: host wrapper included
     kernel_host_ms = cuda_ms(lambda: [launch(*c) for c in calls],
                              saturate=False)
     return dict(
@@ -180,9 +220,11 @@ def kernel_phase(img, bev, mask, cfg, bcfg, dev):
         bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=library_ms, host_bound_ms=kernel_host_ms, bytes=n_bytes,
         level_shapes=shapes,
-        note="per frame: the 12 gathers of one front + one BEV extraction; "
-             "ms, plain_ms, library_ms with the device queue full, "
-             "host_bound_ms as the step issues them")
+        note="per frame: one front + one BEV extraction, 12 levels; ms is "
+             "the kernel's 2 launches (one per extraction), plain_ms and "
+             "library_ms their 12 per-level calls, all with the device "
+             "queue full; host_bound_ms the 2 launches as the step issues "
+             "them")
 
 
 # ---------------------------------------------------------------------------
@@ -286,14 +328,15 @@ def slice_phase(dev):
     rows = run_drive(st, frames, cam, mask, True, dev)
     bird_launches = patch_kernel.LAUNCHES
     n = len(rows)
-    check(bird_launches == (cfg.n_levels + bcfg.n_levels) * n,
+    # one launch per extraction: front and BEV
+    check(bird_launches == 2 * n,
           f"patch kernel launched {bird_launches} times in {n} bird frames")
     kernel["launches"] = bird_launches
 
     patch_kernel.LAUNCHES = 0
     mono_rows = run_drive(st, frames[:N_MONO + 1], cam, None, False, dev)
     mono_launches = patch_kernel.LAUNCHES
-    check(mono_launches == cfg.n_levels * len(mono_rows),
+    check(mono_launches == len(mono_rows),
           f"patch kernel launched {mono_launches} times in "
           f"{len(mono_rows)} mono frames")
 
@@ -315,31 +358,95 @@ def slice_phase(dev):
                                    profile_top=prof["top"])
 
 
+PROFILE_RANGES = ("front_extract", "bev_extract", "pose_lm")
+
+
+@contextlib.contextmanager
+def labelled_entry_points():
+    """While active, the step's calls of `extract_orb` and `optimize_pose`
+    run inside profiler ranges named in PROFILE_RANGES. The ranges are
+    opened here, around the entry points; the package's code has none."""
+    from torch.profiler import record_function
+
+    from orbslam_birdview_tpu_torch.frontend import orb
+    from orbslam_birdview_tpu_torch.graph import pose_opt
+
+    extract, solve = orb.extract_orb, pose_opt.optimize_pose
+
+    def extract_in_range(img, cfg, mask=None, **kw):
+        name = "front_extract" if mask is None else "bev_extract"
+        with record_function(name):
+            return extract(img, cfg, mask=mask, **kw)
+
+    def solve_in_range(*args, **kw):
+        with record_function("pose_lm"):
+            return solve(*args, **kw)
+
+    orb.extract_orb, pose_opt.optimize_pose = extract_in_range, solve_in_range
+    try:
+        yield
+    finally:
+        orb.extract_orb, pose_opt.optimize_pose = extract, solve
+
+
+def launched_under(event):
+    """(count, device µs) of the kernels launched by a host-side profiler
+    event and everything it called."""
+    n = len(event.kernels)
+    us = sum(k.duration for k in event.kernels)
+    for child in event.cpu_children:
+        cn, cus = launched_under(child)
+        n, us = n + cn, us + cus
+    return n, us
+
+
 def profile_step(st, frames, cam, mask, dev, median_step_ms):
     """One bird frame under torch.profiler: the kernels it runs on the
-    device, their busy time, and the device's idle share of the unprofiled
-    median step."""
+    device, their busy time, their attribution to the two extractions, the
+    pose LM (both solves) and the rest of the step (matching, gates,
+    state), and the device's idle share of the unprofiled median step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run_drive(st, frames[:2], cam, mask, True, dev)    # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled_entry_points(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rows = run_drive(st, frames[:2], cam, mask, True, dev)
     kernels = []
     for avg in prof.key_averages():
-        # device-side rows only: an op's row repeats its kernels' time
-        if avg.device_type != DeviceType.CUDA:
+        # device-side rows only: an op's row repeats its kernels' time, and
+        # a range's device-side twin spans its kernels
+        if avg.device_type != DeviceType.CUDA or avg.key in PROFILE_RANGES:
             continue
         dev_us = getattr(avg, "self_device_time_total",
                          getattr(avg, "self_cuda_time_total", 0.0))
         kernels.append((dev_us, avg.count, avg.key))
     busy_ms = sum(k[0] for k in kernels) / 1e3
+    n_kernels = sum(k[1] for k in kernels)
     kernels.sort(reverse=True)
+
+    by_layer = {name: dict(calls=0, kernels=0, device_ms=0.0)
+                for name in PROFILE_RANGES}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in by_layer:
+            n, us = launched_under(ev)
+            layer = by_layer[ev.name]
+            layer["calls"] += 1
+            layer["kernels"] += n
+            layer["device_ms"] += us / 1e3
+    check([by_layer[name]["calls"] for name in PROFILE_RANGES] == [1, 1, 2],
+          f"profiler ranges seen: {by_layer}")
+    check(all(layer["kernels"] > 0 for layer in by_layer.values()),
+          f"a profiler range shows no device kernel: {by_layer}")
+    by_layer["rest"] = dict(
+        kernels=n_kernels - sum(v["kernels"] for v in by_layer.values()),
+        device_ms=busy_ms - sum(v["device_ms"] for v in by_layer.values()))
+    check(by_layer["rest"]["kernels"] >= 0,
+          f"ranges hold more kernels than the frame ran: {by_layer}")
     return dict(
         profiled_wall_ms=rows[0]["step_ms"], device_busy_ms=busy_ms,
         idle_share=(1.0 - busy_ms / median_step_ms) if busy_ms > 0 else None,
-        device_kernels=sum(k[1] for k in kernels),
+        device_kernels=n_kernels, by_layer=by_layer,
         top=[dict(ms=k[0] / 1e3, count=k[1], name=k[2][:90])
              for k in kernels[:12]])
 
@@ -418,7 +525,8 @@ def main() -> int:
 
     kernels_line = {"kernels": [{k: kernel[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "host_bound_ms")}]}
     print(json.dumps(kernels_line))
     print(json.dumps({"slice": slice_rec}))
     print(json.dumps({"ok": True, "device": {

@@ -285,13 +285,29 @@ BLUR_PATCH = PATCH - 6   # after VALID 7x7 blur; center at 21
 BLUR_C = PATCH_C - 3
 
 
+def _pad_for_patches(img, size: int):
+    pad = size // 2
+    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+
+
 def extract_patches(img, ys, xs, size: int = PATCH):
     """(K,) int coords -> (K,size,size) patches centred at (y,x), cut from
     the edge-padded image by the patch-gather kernel."""
-    pad = size // 2
-    padded = F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
-    return patch_kernel.gather_patches(padded, ys.to(torch.int32),
-                                       xs.to(torch.int32), size)
+    return patch_kernel.gather_patches(_pad_for_patches(img, size),
+                                       ys.to(torch.int32), xs.to(torch.int32),
+                                       size)
+
+
+def extract_patches_levels(imgs, ys_levels, xs_levels, size: int = PATCH):
+    """`extract_patches` for all levels of one extraction in one call of
+    the patch-gather kernel: lists of (H_l,W_l) images and (K_l,) int
+    coords -> (ΣK_l,size,size), level 0 first."""
+    counts = [ys.shape[0] for ys in ys_levels]
+    # one cast for all levels; the kernel reads each level's slice in place
+    ys32 = torch.cat(ys_levels).to(torch.int32).split(counts)
+    xs32 = torch.cat(xs_levels).to(torch.int32).split(counts)
+    return patch_kernel.gather_patches_levels(
+        [_pad_for_patches(img, size) for img in imgs], ys32, xs32, size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,7 +405,8 @@ def _extract_impl(img, mask, cfg: ORBConfig) -> Keypoints:
     budgets = cfg.level_budgets()
     scales = cfg.level_scales()
 
-    out_xy, out_resp, out_patch, out_oct, out_val = [], [], [], [], []
+    out_xy, out_resp, out_oct, out_val = [], [], [], []
+    lvl_imgs, lvl_ys, lvl_xs = [], [], []
     lvl_img = torch.round(img)
     for l in range(cfg.n_levels):
         h, w = sizes[l]
@@ -406,7 +423,9 @@ def _extract_impl(img, mask, cfg: ORBConfig) -> Keypoints:
         k_l = max(budgets[l], 1)
         ys, xs, r, valid = select_uniform_topk(resp, k_l, cfg.cell,
                                                cfg.per_cell)
-        out_patch.append(extract_patches(lvl_img, ys, xs))
+        lvl_imgs.append(lvl_img)
+        lvl_ys.append(ys)
+        lvl_xs.append(xs)
         # subpixel refinement: quadratic fit on the response surface
         dx, dy = _subpixel_offsets(resp_raw, ys, xs)
         s = scales[l]
@@ -420,8 +439,8 @@ def _extract_impl(img, mask, cfg: ORBConfig) -> Keypoints:
     response = torch.cat(out_resp, 0)
     octave = torch.cat(out_oct, 0)
     valid = torch.cat(out_val, 0)
-    # orientation + BRIEF once over all levels' patches
-    patches_all = torch.cat(out_patch, 0)
+    # one gather for all levels, then orientation + BRIEF over its patches
+    patches_all = extract_patches_levels(lvl_imgs, lvl_ys, lvl_xs)
     angle = ic_angle_from_patches(patches_all)
     desc_u8 = brief_from_patches(blur_patches(patches_all), angle)
 

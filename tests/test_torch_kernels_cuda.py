@@ -52,3 +52,67 @@ def test_patch_gather_rejects_what_the_kernel_does_not_take(cuda):
                 lambda: tpk.gather_patches(img, idx.cpu(), idx, S)):
         with pytest.raises(ValueError):
             bad()
+
+
+# (Hp, Wp, K_l): the front stream's eight padded levels at 950x400 with
+# their budgets' order of size, then a one-patch level and an empty one
+LEVELS = [(448, 998, 434), (382, 840, 362), (326, 708, 301), (280, 598, 251),
+          (241, 506, 209), (209, 430, 174), (182, 366, 145), (160, 313, 124),
+          (113, 160, 1), (64, 64, 0)]
+
+
+def _levels(cuda, n_levels, size=S):
+    rng = np.random.default_rng(1)
+    imgs, ys_l, xs_l = [], [], []
+    for h, w, k in LEVELS[:n_levels]:
+        imgs.append(torch.from_numpy(np.round(rng.uniform(0, 255, (h, w)))
+                                     .astype(np.float32)).to(cuda))
+        # in-range, past the far edge and negative starts
+        ys_l.append(torch.from_numpy(rng.integers(-3, h - size + 6, k)
+                                     .astype(np.int32)).to(cuda))
+        xs_l.append(torch.from_numpy(rng.integers(-3, w - size + 6, k)
+                                     .astype(np.int32)).to(cuda))
+    return imgs, ys_l, xs_l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_levels,size", [(1, S), (4, S), (8, S), (10, S),
+                                           (4, 31), (4, 64)])
+def test_patch_gather_levels_matches_plain(cuda, n_levels, size):
+    """One launch for all levels, float4 path (size % 4 == 0) and scalar
+    path, against the per-level plain gathers concatenated."""
+    imgs, ys_l, xs_l = _levels(cuda, n_levels, size)
+    before = tpk.LAUNCHES
+    out = tpk.gather_patches_levels(imgs, ys_l, xs_l, size)
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES == before + 1
+    assert out.shape == (sum(k for _, _, k in LEVELS[:n_levels]), size, size)
+    assert torch.equal(out, tpk.gather_patches_levels_plain(imgs, ys_l, xs_l,
+                                                            size))
+
+
+@pytest.mark.cuda
+def test_patch_gather_levels_rejects_what_the_kernel_does_not_take(cuda):
+    img = torch.zeros((64, 64), device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    ok = ([img, img], [idx, idx], [idx, idx])
+
+    def swap(which, value):
+        args = [list(a) for a in ok]
+        args[which][1] = value
+        return args
+
+    before = tpk.LAUNCHES
+    for args, size in ((swap(1, idx.long()), S), (swap(0, img.double()), S),
+                       (swap(0, img.t()), S), (swap(0, img[:40]), S),
+                       (swap(2, idx[:2]), S), (swap(1, idx.cpu()), S),
+                       (swap(0, img.cpu()), S), (ok, 65), (ok, 0),
+                       (([img] * 17, [idx] * 17, [idx] * 17), S),
+                       (([img] * 2, [idx] * 2, [idx] * 3), S)):
+        with pytest.raises(ValueError):
+            tpk.gather_patches_levels(*args, size)
+    assert tpk.LAUNCHES == before
+    # no patch at all: an empty result and no launch
+    none = idx[:0]
+    out = tpk.gather_patches_levels([img], [none], [none], S)
+    assert out.shape == (0, S, S) and tpk.LAUNCHES == before
