@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -59,3 +60,23 @@ def pack_bits(bits):
 
 def pack_pm1_to_bits(pm1):
     return pack_bits(pm1 > 0)
+
+
+def to_host(kp: Keypoints) -> Keypoints:
+    """The same keypoints with numpy fields, landed in ONE device-to-host
+    transfer: the four-byte columns (xy, response, angle, octave, valid)
+    ride one byte buffer with the packed descriptors; the ±1 descriptors
+    are unpacked again on the host."""
+    cols = torch.stack([kp.xy[:, 0], kp.xy[:, 1], kp.response, kp.angle], -1)
+    ints = torch.stack([kp.octave.to(torch.int32),
+                        kp.valid.to(torch.int32)], -1)
+    buf = torch.cat([cols.contiguous().view(torch.uint8),
+                     ints.contiguous().view(torch.uint8), kp.desc_u8],
+                    dim=-1).cpu().numpy()
+    f32 = np.ascontiguousarray(buf[:, :16]).view(np.float32)
+    i32 = np.ascontiguousarray(buf[:, 16:24]).view(np.int32)
+    desc = np.ascontiguousarray(buf[:, 24:])
+    pm1 = np.unpackbits(desc, axis=-1, bitorder="little").astype(np.int8) * 2 - 1
+    return Keypoints(np.ascontiguousarray(f32[:, :2]), f32[:, 2].copy(),
+                     f32[:, 3].copy(), i32[:, 0].copy(),
+                     i32[:, 1].astype(bool), desc, pm1)

@@ -2,7 +2,7 @@
 
 Conventions as in the reference: the camera pose is Tcw (world→camera) with
 a LEFT-multiplicative SE3 tangent [rho, phi]; residual e = observation −
-prediction; Jacobians are ∂e/∂ξ (camera) and ∂e/∂X (landmark). The stereo,
+prediction; Jacobians are ∂e/∂ξ (camera) and ∂e/∂X (landmark). The
 point-transfer, relative-pose and Sim3 edges follow with the slices that
 use them.
 """
@@ -63,6 +63,36 @@ def mono_reproj_cost(R, t, Xw, obs_uv, info, fx, fy, cx, cy):
     pred = torch.stack([fx * Xc[..., 0] * zi + cx, fy * Xc[..., 1] * zi + cy],
                        dim=-1)
     e = obs_uv - pred
+    return e, torch.sum(e * e, dim=-1) * info, z > 1e-6
+
+
+def stereo_reproj(R, t, Xw, obs_uvr, fx, fy, cx, cy, bf):
+    """Stereo edge: residual (u, v, u_right) with u_r = u − bf/z."""
+    Xc = _rot(R, Xw) + t
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    zi = 1.0 / torch.clamp(z, min=1e-9)
+    u = fx * x * zi + cx
+    v = fy * y * zi + cy
+    pred = torch.stack([u, v, u - bf * zi], dim=-1)
+    e = obs_uvr - pred
+    zi2 = zi * zi
+    zero = torch.zeros_like(zi)
+    Ju = torch.stack([fx * zi, zero, -fx * x * zi2], dim=-1)
+    Jv = torch.stack([zero, fy * zi, -fy * y * zi2], dim=-1)
+    Jur = torch.stack([fx * zi, zero, -fx * x * zi2 + bf * zi2], dim=-1)
+    Jp = torch.stack([Ju, Jv, Jur], dim=-2)  # (…,3,3)
+    Jxi_xc, _ = _xc_jacs(Xc, R)
+    return e, -_mm_small(Jp, Jxi_xc), -_mm_small(Jp, R), z > 1e-6
+
+
+def stereo_reproj_cost(R, t, Xw, obs_uvr, info, fx, fy, cx, cy, bf):
+    """Residual + chi² only (no Jacobians) of the stereo edge."""
+    Xc = _rot(R, Xw) + t
+    z = Xc[..., 2]
+    zi = 1.0 / torch.clamp(z, min=1e-9)
+    u = fx * Xc[..., 0] * zi + cx
+    v = fy * Xc[..., 1] * zi + cy
+    e = obs_uvr - torch.stack([u, v, u - bf * zi], dim=-1)
     return e, torch.sum(e * e, dim=-1) * info, z > 1e-6
 
 

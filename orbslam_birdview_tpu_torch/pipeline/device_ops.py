@@ -1,10 +1,14 @@
-"""Fixed-shape (padded + masked) geometry ops of the tracking step:
-projection and the frustum test of the local-map candidates. The mapping
-ops of the reference's module follow with local mapping.
+"""Fixed-shape (padded + masked) ops shared by the tracking stages:
+projection, the frustum test of the local-map candidates, and the
+frame-to-frame matchers of initialization. The mapping ops of the
+reference's module (triangulation, fuse) follow with local mapping.
 """
 from __future__ import annotations
 
 import torch
+
+from ..frontend import matcher
+from ..frontend.keypoints import unpack_bits_to_pm1
 
 
 def project_points(R, t, pos, fx, fy, cx, cy, width, height):
@@ -37,3 +41,34 @@ def frustum_gate(R, t, pos, normal, min_dist, max_dist, valid,
     radius_factor = torch.where(view_cos > 0.998, 2.5, 4.0)
     ok = in_img & band & angle_ok & valid
     return uv, pred_octave, radius_factor, ok
+
+
+def match_projected(proj_uv, pt_ok, pt_desc_u8, kp_xy, kp_octave, kp_valid,
+                    kp_desc_pm1, radius, pred_octave,
+                    max_dist_th: int = matcher.TH_HIGH):
+    """Projected map points against frame keypoints, duplicates resolved."""
+    idx, dist = matcher.search_by_projection(
+        proj_uv, pt_ok, unpack_bits_to_pm1(pt_desc_u8), kp_xy, kp_octave,
+        kp_valid, kp_desc_pm1, radius, pred_octave, max_dist=max_dist_th)
+    # the table is sized by the source count alone, as the reference's
+    return matcher.resolve_duplicate_targets(idx, dist), dist
+
+
+def match_frames_window(xy_a, desc_a_pm1, valid_a, xy_b, desc_b_pm1, valid_b,
+                        radius):
+    """Mutual-best windowed match of frame a's keypoints into frame b's."""
+    dist = matcher.hamming_matrix(desc_a_pm1, desc_b_pm1, valid_a, valid_b)
+    return matcher.match_window(xy_a, xy_b, dist, radius,
+                                max_dist=matcher.TH_LOW, ratio=0.9)
+
+
+def match_frames_window_rot(xy_a, ang_a, desc_a_pm1, valid_a,
+                            xy_b, ang_b, desc_b_pm1, valid_b, radius):
+    """`match_frames_window` with the rotation-histogram consistency check
+    (matches outside the 3 fullest of 30 angle-difference bins go)."""
+    idx, d = match_frames_window(xy_a, desc_a_pm1, valid_a, xy_b,
+                                 desc_b_pm1, valid_b, radius)
+    m = idx >= 0
+    keep = matcher.rotation_consistency_mask(
+        ang_a, ang_b, torch.where(m, idx, 0).long(), m)
+    return torch.where(keep, idx, -1), d

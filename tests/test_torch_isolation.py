@@ -32,11 +32,23 @@ MODULES = [
     "orbslam_birdview_tpu_torch.frontend.matcher",
     "orbslam_birdview_tpu_torch.graph.residuals",
     "orbslam_birdview_tpu_torch.graph.pose_opt",
+    "orbslam_birdview_tpu_torch.graph.ba",
+    "orbslam_birdview_tpu_torch.solvers.ransac",
+    "orbslam_birdview_tpu_torch.solvers.icp",
+    "orbslam_birdview_tpu_torch.solvers.twoview",
+    "orbslam_birdview_tpu_torch.solvers.initializer",
+    "orbslam_birdview_tpu_torch.mapping.mapstore",
+    "orbslam_birdview_tpu_torch.api",
+    "orbslam_birdview_tpu_torch.api.config",
     "orbslam_birdview_tpu_torch.pipeline.device_ops",
     "orbslam_birdview_tpu_torch.pipeline.fused_track",
+    "orbslam_birdview_tpu_torch.pipeline.frame",
+    "orbslam_birdview_tpu_torch.pipeline.local_mapping",
+    "orbslam_birdview_tpu_torch.pipeline.tracking",
     "orbslam_birdview_tpu_torch.pipeline.state",
     "orbslam_birdview_tpu_torch.utils.synth",
     "orbslam_birdview_tpu_torch.utils.build",
+    "orbslam_birdview_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 
@@ -150,3 +162,17 @@ def test_seeded_bundle_reprojects_onto_its_keypoints():
     base = (bird["pos"][:nb] - t_wb) @ R_wb
     uvb = bv.base_xy_to_pixel(torch.from_numpy(base[:, :2])).numpy()
     np.testing.assert_allclose(uvb, bkp["xy"][bkp["valid"]], atol=1e-3)
+
+
+def test_every_module_of_the_port_is_listed():
+    """A module added to the package must be added to MODULES, so that the
+    isolation test imports it (empty `__init__.py` files aside)."""
+    found = set()
+    for path in (REPO / "orbslam_birdview_tpu_torch").rglob("*.py"):
+        rel = path.relative_to(REPO).with_suffix("")
+        if rel.name == "__init__":
+            if path.stat().st_size == 0:
+                continue
+            rel = rel.parent
+        found.add(".".join(rel.parts))
+    assert not found - set(MODULES), sorted(found - set(MODULES))

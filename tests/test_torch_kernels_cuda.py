@@ -116,3 +116,34 @@ def test_patch_gather_levels_rejects_what_the_kernel_does_not_take(cuda):
     none = idx[:0]
     out = tpk.gather_patches_levels([img], [none], [none], S)
     assert out.shape == (0, S, S) and tpk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_init_phase_small_on_the_card(cuda):
+    """The initialization path at half size on the card: `Tracker.process`
+    until OK, the map against ground truth, then the fused step from the
+    refreshed bundles; the patch gather launches twice a frame fed."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as smoke
+
+    drive = smoke.render_drive(8, 0.5, 1000)
+    drive.update(P=3072, PB=1024)
+    tracker, rec = smoke.init_phase(drive, cuda, floors=False)
+    assert rec["frames_fed"] == 4 and rec["keyframe_frames"] == [0, 3]
+    assert rec["icp_ok"] and rec["patch_gather_launches"] == 8
+    assert abs(rec["scale_ratio"] - 1.0) < 0.02 and rec["rot_err_deg"] < 0.3
+    assert rec["map_points"] >= 150 and rec["bird_landmarks"] >= 100
+    assert max(rec["median_reproj_px"]) < 1.0
+    assert rec["ba"]["cost_last"] <= rec["ba"]["cost_first"]
+    assert tracker._K_dev.device.type == "cuda"
+    tracked, rows = smoke.tracked_from_init_phase(tracker, drive, cuda)
+    assert tracked["frames"] == 4 and tracked["patch_gather_launches"] == 8
+    assert tracked["min_front_inliers"] >= 30
+    assert tracked["min_bird_inliers"] >= 50
+    assert tracked["max_pos_err_m"] < 0.06
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tracker.process(drive["frames"][4][0], 4.0, drive["frames"][4][1],
+                        drive["mask"])

@@ -8,8 +8,10 @@ import torch
 
 from orbslam_birdview_tpu.frontend import keypoints as jkp
 from orbslam_birdview_tpu.frontend import matcher as jm
+from orbslam_birdview_tpu.pipeline import device_ops as jops
 from orbslam_birdview_tpu_torch.frontend import keypoints as tkp
 from orbslam_birdview_tpu_torch.frontend import matcher as tm
+from orbslam_birdview_tpu_torch.pipeline import device_ops as tops
 
 
 def _t(x):
@@ -148,3 +150,55 @@ def test_rotation_consistency_mask(rng):
     out = tm.rotation_consistency_mask(_t(ang_a), _t(ang_b), _t(idx).long(),
                                        _t(matched))
     _eq(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# the frame-to-frame and projection matchers of pipeline/device_ops.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rot", [False, True], ids=["window", "window_rot"])
+def test_match_frames_window(descs, rng, rot):
+    a, b, va, vb = descs
+    xy_b = rng.uniform(0, 300, (160, 2)).astype(np.float32)
+    xy_a = (xy_b[:96] + rng.normal(0, 8, (96, 2))).astype(np.float32)
+    ang_a = rng.uniform(0, 2 * np.pi, 96).astype(np.float32)
+    ang_b = rng.uniform(0, 2 * np.pi, 160).astype(np.float32)
+    ang_b[:48] = ang_a[:48] + 0.02          # one full histogram bin
+    radius = np.float32(20.0)
+    if rot:
+        ref = jops.match_frames_window_rot(
+            jnp.asarray(xy_a), jnp.asarray(ang_a), jnp.asarray(_pm1(a)),
+            jnp.asarray(va), jnp.asarray(xy_b), jnp.asarray(ang_b),
+            jnp.asarray(_pm1(b)), jnp.asarray(vb), jnp.asarray(radius))
+        out = tops.match_frames_window_rot(
+            _t(xy_a), _t(ang_a), _t(_pm1(a)), _t(va), _t(xy_b), _t(ang_b),
+            _t(_pm1(b)), _t(vb), _t(radius))
+    else:
+        ref = jops.match_frames_window(
+            jnp.asarray(xy_a), jnp.asarray(_pm1(a)), jnp.asarray(va),
+            jnp.asarray(xy_b), jnp.asarray(_pm1(b)), jnp.asarray(vb),
+            jnp.asarray(radius))
+        out = tops.match_frames_window(_t(xy_a), _t(_pm1(a)), _t(va),
+                                       _t(xy_b), _t(_pm1(b)), _t(vb),
+                                       _t(radius))
+    _eq(out[0], ref[0])
+    _eq(out[1], ref[1])
+    assert 10 < int((out[0] >= 0).sum()) < 96
+
+
+def test_match_projected(descs, rng):
+    a, b, va, vb = descs
+    xy_b = rng.uniform(0, 300, (160, 2)).astype(np.float32)
+    uv = (xy_b[:96] + rng.normal(0, 3, (96, 2))).astype(np.float32)
+    oct_b = rng.integers(0, 4, 160).astype(np.int32)
+    pred = rng.integers(0, 4, 96).astype(np.int32)
+    radius = rng.uniform(4, 12, 96).astype(np.float32)
+    ref = jops.match_projected(
+        jnp.asarray(uv), jnp.asarray(va), jnp.asarray(a), jnp.asarray(xy_b),
+        jnp.asarray(oct_b), jnp.asarray(vb), jnp.asarray(_pm1(b)),
+        jnp.asarray(radius), jnp.asarray(pred))
+    out = tops.match_projected(_t(uv), _t(va), _t(a), _t(xy_b), _t(oct_b),
+                               _t(vb), _t(_pm1(b)), _t(radius), _t(pred))
+    _eq(out[0], ref[0])
+    _eq(out[1], ref[1])
+    assert int((out[0] >= 0).sum()) > 10
