@@ -17,12 +17,11 @@ Phases, each of which must pass (any failure exits non-zero):
    (configs/fisheye_birdview.yaml), 2000 features on 8 levels, minThFAST 5;
    384×384 BEV with the footprint mask, 2000 features on 4 levels; a
    6144-point local map and a 2048-point ground bundle seeded from frame
-   0's ground truth — over a rendered drive, chained on the device pose
-   chain; then a shorter mono-only run. The kernel counts are zeroed before
-   each run and read after it. One more frame runs under torch.profiler
-   (after phase 5, so that no timed drive follows a profiler session),
-   which attributes its device kernels to the two extractions, the pose LM
-   and the rest of the step;
+   0's ground truth — over 15 frames of a rendered drive, chained on the
+   device pose chain; then 5 mono-only frames. One more frame runs under
+   torch.profiler (after every timed drive, so that no timed drive follows
+   a profiler session), which attributes its device kernels to the two
+   extractions, the pose LM and the rest of the step;
 4. init: a `Tracker` with a `LocalMapper` and a `MapStore` is fed the
    drive's frames through `Tracker.process` until it has initialized: ORB
    on both streams, frame-to-frame matching, two-view initialization with
@@ -32,14 +31,29 @@ Phases, each of which must pass (any failure exits non-zero):
    the drive's ground truth expressed in the reference keyframe's camera
    frame, with no scale alignment;
 5. tracked from init: `_refresh_local_map` turns the store into the step's
-   bundles, and the drive's remaining frames go through `track_step_mono`
+   bundles, and the drive's next 10 frames go through `track_step_mono`
    from the second keyframe's pose, against the same ground truth;
-6. reference: the same step, `initialize_two_view` and `bundle_adjust` on
-   small inputs on the CPU and on the GPU, which must agree.
+6. system: the SLAM loop through `System.track_monocular_with_birdview` at
+   full width over 60 frames of the drive (loop closing off: slice 3),
+   after one `System.prewarm()`, then `_flush`: tracking (fused and slow
+   paths, the lag queue), keyframes, local mapping (triangulation, fuse,
+   local BA, culling). Held to the bars of tests/test_e2e.py's birdview
+   test (metric ATE < 0.05 m with no scale alignment, path length within
+   2 %, > 200 bird landmarks), >= 95 % of the frames after initialization
+   tracked, >= 4 keyframes, >= 2 local BAs landed, every keyframe's stages
+   applied, no compaction overflow, two patch-gather launches a frame;
+7. e2e: the four mono and mono+bird tests of tests/test_e2e.py on the
+   port with their own configurations and bars;
+8. relocalization: dense keyframes over 20 frames of the drive, 3 blank
+   front and BEV frames (LOST, no reset), then frame 5 again, which must
+   relocalize within 0.02 m of its first pass;
+9. reference: the step, `initialize_two_view`, `bundle_adjust`,
+   `pnp_ransac` and the two compacting mapping ops on small inputs on the
+   CPU and on the GPU, which must agree.
 
 Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
-JSON line and, last, `{"ok": true, "device": {...}}`. Writes the full
-record to chiprun_out/chip_smoke.json.
+JSON line, a `system` JSON line and, last, `{"ok": true, "device": {...}}`.
+Writes the full record to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -55,8 +69,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-N_FRAMES = 30            # bird frames after the seed frame
-N_MONO = 10              # mono-only frames
+N_FRAMES = 15            # seeded bird frames after the seed frame
+N_MONO = 5               # seeded mono-only frames
+N_INIT_DRIVE = 14        # frames fed to initialization and tracked from it
+SYSTEM_FRAMES = 60       # frames fed to System
+RELOC_FRAMES = 20        # frames before the camera goes blind
 P, PB = 6144, 2048       # fused_point_cap, fused_bird_cap (api/config.py)
 BEV = 384                # BirdviewCamera default (core/camera.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -110,6 +127,24 @@ SMALL_INIT_TOL, SMALL_BA_TOL, SMALL_MASK_TOL = 1e-3, 1e-3, 3
 # of the points agree to 5 mm, every point to 5 cm (four runs of the same
 # code read a largest difference of 0.8, 1.2, 2.0 and 9.3 mm).
 SMALL_BA_POINT_TOL, SMALL_BA_POINT_MAX = 5e-3, 5e-2
+# The SLAM loop through System on the drive: the bars of
+# tests/test_e2e.py::test_birdview_metric_scale (metric ATE < 0.05 m with no
+# scale alignment, path length within 2 %, > 200 bird landmarks); at least
+# 95 % of the frames after initialization tracked; at least 4 keyframes and
+# 2 local BAs landed. Both packages' System on the drive at half size on the
+# CPU (tools/port_reference.py; PERF.md) tracked every frame after
+# initialization with an ATE of 5 mm, a path-length ratio within 0.1 % and
+# 8 keyframes over 40 frames.
+MIN_SYSTEM_TRACKED_SHARE = 0.95
+MAX_SYSTEM_ATE_M = 0.05
+MIN_SYSTEM_KEYFRAMES = 4
+MIN_SYSTEM_BA_LANDED = 2
+MIN_SYSTEM_BIRD_LANDMARKS = 200
+# relocalization: the bar of tests/test_e2e.py::test_relocalization_after_lost
+RELOC_MAX_M = 0.02
+# pnp_ransac and the two compacting mapping ops, CPU against GPU: the same
+# draws and the same integer matching; poses sum in another order
+SMALL_PNP_TOL, SMALL_TRI_RTOL = 1e-3, 5e-4
 
 
 class SmokeFailure(Exception):
@@ -805,7 +840,9 @@ def reference_phase(dev):
                 cpu_inliers=[r["n_inliers"] for r in cpu_rows],
                 gpu_inliers=[r["n_inliers"] for r in gpu_rows],
                 initialize_two_view=small_init_reference(dev),
-                bundle_adjust=small_ba_reference(dev))
+                bundle_adjust=small_ba_reference(dev),
+                pnp_ransac=small_pnp_reference(dev),
+                mapping_ops=small_mapping_ops_reference(dev))
 
 
 def small_two_view(rng, n=300, nb=150):
@@ -956,6 +993,506 @@ def small_ba_reference(dev):
                 max_point_diff=float(point_diff.max()))
 
 
+# ---------------------------------------------------------------------------
+# the SLAM loop through System: tracking, keyframes, local mapping
+# ---------------------------------------------------------------------------
+
+SYSTEM_STAGES = ("fused.dispatch", "fused.retire", "kf.mapper",
+                 "kf.bundle_refresh", "map.tri_dispatch", "map.tri_apply",
+                 "map.fuse_dispatch", "map.fuse_apply", "map.ba_dispatch",
+                 "map.kf_cull")
+
+
+def make_system(cfg, dev):
+    from orbslam_birdview_tpu_torch.api.system import System
+    return System(cfg, enable_loop_closing=False, device=dev)
+
+
+def stage_counts(system):
+    """Sample counts of the tracker's and the mapper's stage timers."""
+    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
+    out = {k: len(v) for k, v in system.tracker.timer.samples.items()}
+    out.update({k: len(v) for k, v in GLOBAL_TIMER.samples.items()})
+    return out
+
+
+def wall_stats(ms):
+    if not ms:
+        return dict(n=0)
+    a = np.asarray(ms)
+    return dict(n=len(a), median=float(np.median(a)),
+                p90=float(np.percentile(a, 90)), max=float(a.max()))
+
+
+def trajectory_errors(fds, gts):
+    """ATE (rigid alignment, no scale), path-length ratio and largest
+    position / rotation errors of the pose_ok frames against ground truth
+    in the map's frame."""
+    from orbslam_birdview_tpu_torch.utils.synth import ate_rmse
+
+    est, gt, pos_errs, rot_errs = [], [], [], []
+    for fd, (R_gt, t_gt) in zip(fds, gts):
+        if not fd.pose_ok:
+            continue
+        est.append(-fd.R.T @ fd.t)
+        gt.append(-R_gt.T @ t_gt)
+        p, r = pose_errors(fd.R, fd.t, R_gt, t_gt)
+        pos_errs.append(p)
+        rot_errs.append(r)
+    est, gt = np.array(est), np.array(gt)
+    d_est = np.linalg.norm(np.diff(est, axis=0), axis=1).sum()
+    d_gt = np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()
+    return dict(ate_m=ate_rmse(est, gt, with_scale=False),
+                ate_unaligned_m=ate_rmse(est, gt, align=False),
+                scale_ratio=float(d_est / d_gt),
+                max_pos_err_m=max(pos_errs), max_rot_err_deg=max(rot_errs))
+
+
+def system_phase(drive, dev):
+    """The drive through `System.track_monocular_with_birdview` at full
+    width, then `_flush`. Ground truth is expressed in the first keyframe's
+    camera frame (the map's world); nothing is aligned in scale."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.pipeline import tracking
+    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    seq, frames, mask = drive["seq"], drive["frames"], drive["mask"]
+    cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
+    system = make_system(cfg, dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    n_warm = system.prewarm()
+    sync(dev)
+    prewarm_s = time.perf_counter() - t0
+    GLOBAL_TIMER.reset()
+    patch_kernel.LAUNCHES = 0
+    fds, call_ms, mapping_call = [], [], []
+    for i, (img, bev, _) in enumerate(frames):
+        before = stage_counts(system)
+        n_kf = system.store.n_kf
+        sync(dev)
+        t_call = time.perf_counter()
+        fds.append(system.track_monocular_with_birdview(img, bev, mask,
+                                                        i / 25.0))
+        sync(dev)
+        call_ms.append((time.perf_counter() - t_call) * 1e3)
+        after = stage_counts(system)
+        mapping_call.append(system.store.n_kf != n_kf or any(
+            after.get(k, 0) != before.get(k, 0) for k in after
+            if k.startswith(("kf.", "map."))))
+    sync(dev)
+    t_flush = time.perf_counter()
+    system._flush()
+    flush_ms = (time.perf_counter() - t_flush) * 1e3
+    launches = patch_kernel.LAUNCHES
+    check_launches(launches, len(frames), dev)
+    store, mapper, tracker = system.store, system.mapper, system.tracker
+    ok = [fd.pose_ok for fd in fds]
+    check(any(ok), "the system never initialized")
+    first = ok.index(True)
+    kf0 = int(store.kf_frame_id[0])
+    ref_pose = seq.gt_cam_pose(kf0)
+    gts = [relative_pose(seq.gt_cam_pose(i), ref_pose)
+           for i in range(len(frames))]
+    err = trajectory_errors(fds[first:], gts[first:])
+    after_init = ok[first:]
+    timer = dict(tracker.timer.samples)
+    timer.update(GLOBAL_TIMER.samples)
+    stages = {k: dict(n=len(timer.get(k, [])),
+                      total_ms=float(np.sum(timer.get(k, [0.0])) * 1e3),
+                      median_ms=(float(np.median(timer[k]) * 1e3)
+                                 if timer.get(k) else None))
+              for k in SYSTEM_STAGES}
+    counters = dict(tracker.timer.counters)
+    rec = dict(
+        front=f"{cfg.camera.width}x{cfg.camera.height}",
+        bev=f"{cfg.birdview.width}x{cfg.birdview.height}",
+        features=[cfg.orb.n_features, cfg.effective_bird_orb().n_features],
+        frames_fed=len(frames), init_frame=first,
+        tracked=int(sum(ok)), lost=int(len(ok) - sum(ok)),
+        tracked_share_after_init=float(np.mean(after_init)),
+        keyframes_minted=int(store.n_kf),
+        keyframes_culled=mapper.stats["kf_culled"],
+        keyframes_alive=int(store.kf_valid.sum()),
+        keyframe_frames=store.kf_frame_id[:store.n_kf].tolist(),
+        map_points=int(store.mp_valid.sum()),
+        bird_landmarks=int(store.bmp_valid.sum()),
+        local_ba=dict(dispatched=mapper.stats["ba_dispatched"],
+                      landed=mapper.stats["ba_landed"],
+                      dropped=mapper.stats["ba_dropped"]),
+        stages_applied=dict(triangulate=mapper.stats["tri_applied"],
+                            fuse=mapper.stats["fuse_applied"]),
+        points_culled=mapper.stats["points_culled"],
+        compact_overflows=mapper.compact_overflows,
+        fused_frames=counters.get("track.fused", 0),
+        slow_path_frames=counters.get("track.slow", 0),
+        fallback_frames=counters.get("track.fallback", 0),
+        relocalizations=counters.get("reloc.ok", 0),
+        realized_summary_batches=tracker.batch_stats,
+        forced_retire_s=tracker.forced_block_s,
+        **err,
+        call_ms=dict(
+            note="host clock around each track_* call with a device sync "
+                 "after it; the lag queue returns before a frame's pose "
+                 "exists, so a call carries the retirement of an earlier "
+                 "frame. keyframe_frames: calls that minted a keyframe or "
+                 "ran a keyframe / mapping stage",
+            first_call=call_ms[0],
+            keyframe_frames=wall_stats([m for m, k in zip(call_ms[1:],
+                                                          mapping_call[1:])
+                                        if k]),
+            other_frames=wall_stats([m for m, k in zip(call_ms[1:],
+                                                       mapping_call[1:])
+                                     if not k]),
+            flush=flush_ms),
+        stages=stages, prewarm=dict(problems=n_warm, wall_s=prewarm_s),
+        patch_gather_launches=launches,
+        final_state_ok=bool(tracker.state == tracking.OK),
+        floors=dict(init_frames=MAX_INIT_FRAMES,
+                    tracked_share=MIN_SYSTEM_TRACKED_SHARE,
+                    ate_m=MAX_SYSTEM_ATE_M, scale_rel=MAX_BASELINE_REL_ERR,
+                    keyframes=MIN_SYSTEM_KEYFRAMES,
+                    ba_landed=MIN_SYSTEM_BA_LANDED,
+                    bird_landmarks=MIN_SYSTEM_BIRD_LANDMARKS))
+    return system, rec
+
+
+def system_phase_checks(rec):
+    """The system phase's acceptance, on its record."""
+    check(rec["init_frame"] < MAX_INIT_FRAMES,
+          f"initialized at frame {rec['init_frame']}")
+    check(rec["tracked_share_after_init"] >= MIN_SYSTEM_TRACKED_SHARE,
+          f"tracked {rec['tracked_share_after_init']} of the frames "
+          "after initialization")
+    check(rec["ate_m"] < MAX_SYSTEM_ATE_M, f"metric ATE {rec['ate_m']} m")
+    check(abs(rec["scale_ratio"] - 1.0) <= MAX_BASELINE_REL_ERR,
+          f"path-length ratio {rec['scale_ratio']}")
+    check(rec["bird_landmarks"] > MIN_SYSTEM_BIRD_LANDMARKS,
+          f"{rec['bird_landmarks']} bird landmarks")
+    check(rec["keyframes_minted"] >= MIN_SYSTEM_KEYFRAMES,
+          f"{rec['keyframes_minted']} keyframes")
+    check(rec["local_ba"]["landed"] >= MIN_SYSTEM_BA_LANDED,
+          f"local BAs: {rec['local_ba']}")
+    # every keyframe minted after initialization ran both stages (one
+    # culled before its turn would skip them)
+    minted = rec["keyframes_minted"] - 2
+    tri, fuse = (rec["stages_applied"][k] for k in ("triangulate", "fuse"))
+    check(tri == fuse and minted - rec["keyframes_culled"] <= tri <= minted,
+          f"{minted} keyframes minted after initialization, stages applied "
+          f"{rec['stages_applied']}, culled {rec['keyframes_culled']}")
+    check(rec["compact_overflows"] == 0,
+          f"{rec['compact_overflows']} compaction overflows")
+    check(rec["final_state_ok"], "the run ended LOST")
+
+
+# The e2e tests of the reference package (tests/test_e2e.py), on the port
+# and its own renders, with their own configurations and bars.
+E2E_CAM = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+
+
+def _run_sequence(system, frames, mode):
+    gt, est = [], []
+    for i, item in enumerate(frames):
+        if mode == "mono":
+            img, (R_cw, t_cw) = item
+            fd = system.track_monocular(img, i / 30.0)
+        else:
+            img, bev, (R_cw, t_cw) = item
+            fd = system.track_monocular_with_birdview(img, bev, None, i / 25.0)
+        if fd.pose_ok:
+            est.append(-fd.R.T @ fd.t)
+            gt.append(-R_cw.T @ t_cw)
+    return np.array(gt), np.array(est)
+
+
+def e2e_monocular_wall_sequence(dev):
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence, ate_rmse
+
+    cam = PinholeCamera(**E2E_CAM)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=1000), sensor="mono")
+    seq = WallSequence(cam, n_frames=30, step=0.03)
+    system = make_system(cfg, dev)
+    gt, est = _run_sequence(system, (seq.frame(i) for i in range(30)), "mono")
+    ate = ate_rmse(est, gt, with_scale=True)  # mono scale is free
+    rec = dict(tracked=len(est), ate_m=ate, keyframes=system.n_keyframes(),
+               map_points=system.n_map_points())
+    check(len(est) >= 24, f"wall: tracked only {len(est)} frames")
+    check(ate < 0.02, f"wall: ATE {ate}")
+    check(rec["keyframes"] >= 3, f"wall: {rec['keyframes']} keyframes")
+    check(rec["map_points"] > 300, f"wall: {rec['map_points']} map points")
+    return rec
+
+
+def e2e_birdview_metric_scale(dev):
+    """The fork's core capability: a METRIC trajectory, no scale
+    alignment."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core import lie
+    from orbslam_birdview_tpu_torch.core.camera import (BirdviewCamera,
+                                                        PinholeCamera)
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import BirdSequence, ate_rmse
+
+    cam = PinholeCamera(**E2E_CAM)
+    bv = BirdviewCamera(width=384, height=384)
+    seq = BirdSequence(cam, bv, n_frames=35, speed=0.12, yaw_rate=0.004)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
+                     sensor="mono_bird", birdview=bv)
+    cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
+    cfg.tbc_t = tuple(seq.t_bc.tolist())
+    system = make_system(cfg, dev)
+    gt, est = _run_sequence(system, (seq.frame(i) for i in range(35)), "bird")
+    ate = ate_rmse(est, gt, with_scale=False)
+    d_est = np.linalg.norm(np.diff(est, axis=0), axis=1).sum()
+    d_gt = np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()
+    rec = dict(tracked=len(est), ate_m=ate, scale_ratio=float(d_est / d_gt),
+               bird_landmarks=int(system.store.bmp_valid.sum()))
+    check(len(est) >= 28, f"bird: tracked only {len(est)} frames")
+    check(ate < 0.05, f"bird: metric ATE {ate}")
+    check(abs(rec["scale_ratio"] - 1.0) < 0.02,
+          f"bird: scale {rec['scale_ratio']}")
+    check(rec["bird_landmarks"] > 200,
+          f"bird: {rec['bird_landmarks']} bird landmarks")
+    return rec
+
+
+def e2e_reset_and_localization_mode(dev):
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence
+
+    cam = PinholeCamera(**E2E_CAM)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=800), sensor="mono")
+    seq = WallSequence(cam, n_frames=20, step=0.03)
+    system = make_system(cfg, dev)
+    _run_sequence(system, (seq.frame(i) for i in range(20)), "mono")
+    system._flush()   # settle any in-flight deferred keyframe mint
+    n_kf = system.n_keyframes()
+    check(n_kf >= 2, f"reset: {n_kf} keyframes")
+    # localization only: no new keyframes
+    system.activate_localization_mode()
+    for i in range(20, 25):
+        system.track_monocular(seq.frame(i)[0], i / 30.0)
+    check(system.n_keyframes() == n_kf, "localization mode added keyframes")
+    system.deactivate_localization_mode()
+    system.reset()
+    check(system.n_keyframes() == 0 and system.get_tracking_state() == 0,
+          "reset left a map")
+    return dict(keyframes_before_reset=n_kf)
+
+
+def e2e_trajectory_savers(dev, out_dir):
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence
+
+    cam = PinholeCamera(**E2E_CAM)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=800), sensor="mono")
+    seq = WallSequence(cam, n_frames=15, step=0.03)
+    system = make_system(cfg, dev)
+    _run_sequence(system, (seq.frame(i) for i in range(15)), "mono")
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = [out_dir / n for n in ("traj.txt", "kf.txt", "kitti.txt",
+                                   "odom.txt")]
+    system.save_trajectory_tum(str(paths[0]))
+    system.save_keyframe_trajectory_tum(str(paths[1]))
+    system.save_trajectory_kitti(str(paths[2]))
+    system.save_keyframe_trajectory_odom_tum(str(paths[3]))
+    lines = paths[0].read_text().strip().split("\n")
+    check(len(lines) >= 10, f"savers: {len(lines)} TUM lines")
+    check(all(len(l.split()) == 8 for l in lines), "savers: TUM format")
+    klines = paths[2].read_text().strip().split("\n")
+    check(all(len(l.split()) == 12 for l in klines), "savers: KITTI format")
+    q = np.array([float(x) for x in lines[0].split()[4:8]])
+    check(abs(np.linalg.norm(q) - 1.0) <= 1e-5, "savers: quaternion norm")
+    return dict(tum_lines=len(lines), kitti_lines=len(klines))
+
+
+def e2e_phase(dev):
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+
+    patch_kernel.LAUNCHES = 0
+    rec = dict(
+        monocular_wall_sequence=e2e_monocular_wall_sequence(dev),
+        birdview_metric_scale=e2e_birdview_metric_scale(dev),
+        reset_and_localization_mode=e2e_reset_and_localization_mode(dev),
+        trajectory_savers=e2e_trajectory_savers(
+            dev, ROOT / "chiprun_out" / "trajectories"))
+    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    return rec
+
+
+def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
+    """Lost and found: dense keyframes over the first frames of the drive,
+    3 blank front and BEV frames (LOST, no reset), then frame `revisit`
+    again, which must relocalize within RELOC_MAX_M of its first pass."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.pipeline import tracking
+
+    frames, mask = drive["frames"], drive["mask"]
+    cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
+    cfg.tracking.max_frames_between_kf = 2
+    system = make_system(cfg, dev)
+    patch_kernel.LAUNCHES = 0
+    first_pass = {}
+    for i, (img, bev, _) in enumerate(frames[:n_first]):
+        fd = system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
+        if fd.pose_ok:
+            first_pass[i] = (fd.R.copy(), fd.t.copy())
+    n_kf = system.n_keyframes()
+    store = system.store
+    check(n_kf > 5, f"reloc: only {n_kf} keyframes")
+    check(revisit in first_pass, "reloc: the revisited frame was not tracked")
+    blank = np.zeros_like(frames[0][0])
+    blank_bev = np.zeros_like(frames[0][1])
+    for j in range(3):
+        fd = system.track_monocular_with_birdview(blank, blank_bev, mask,
+                                                  (n_first + j) / 25.0)
+        check(not fd.pose_ok, "reloc: a blank frame tracked")
+    check(system.get_tracking_state() == tracking.LOST,
+          "reloc: not LOST after the blank frames")
+    check(system.store is store and system.n_keyframes() > 5,
+          "reloc: the map was reset")
+    img, bev, _ = frames[revisit]
+    sync(dev)
+    t0 = time.perf_counter()
+    fd = system.track_monocular_with_birdview(img, bev, mask,
+                                              (n_first + 5) / 25.0)
+    ok = fd.pose_ok
+    sync(dev)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    check(ok, "reloc: relocalization failed")
+    check(system.tracker.last_reloc_frame_id == fd.frame_id,
+          "reloc: the pose did not come from relocalization")
+    R1, t1 = first_pass[revisit]
+    dist = float(np.linalg.norm(-fd.R.T @ fd.t + R1.T @ t1))
+    check(dist < RELOC_MAX_M, f"reloc: {dist} m from the first pass")
+    return dict(frames=n_first, keyframes=n_kf, recovered=True,
+                centre_diff_m=dist, reloc_call_ms=reloc_ms,
+                pnp_calls=system.tracker.timer.counters.get("reloc.pnp", 0),
+                patch_gather_launches=patch_kernel.LAUNCHES)
+
+
+def small_pnp_reference(dev):
+    """`pnp_ransac` on a synthetic scene (300 points, 20 % outliers) on the
+    CPU and on the GPU from the same draws: same `ok`, same inlier count
+    within SMALL_MASK_TOL, R and t within SMALL_PNP_TOL."""
+    from orbslam_birdview_tpu_torch.solvers import pnp, ransac
+
+    rng = np.random.default_rng(2)
+    n = 300
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(4, 10, n)], 1).astype(np.float32)
+    a = 0.1
+    R = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                  [-math.sin(a), 0, math.cos(a)]], np.float32)
+    t = np.array([0.2, -0.1, 0.3], np.float32)
+    Xc = X @ R.T + t
+    xy = (Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 1e-3, (n, 2))).astype(
+        np.float32)
+    xy[: n // 5] = rng.uniform(-1, 1, (n // 5, 2))
+    chi2 = np.full(n, 5.991 / 500.0 ** 2, np.float32)
+    draws = ransac.draw(torch.Generator().manual_seed(0), 256, 4, "cpu")
+    out = [pnp.fetch_result(pnp.pnp_ransac(draws, X, xy, np.ones(n, bool),
+                                           chi2, device=d))
+           for d in (torch.device("cpu"), dev)]
+    c, g = out
+    check(c.ok and g.ok, f"small pnp: ok cpu {c.ok} gpu {g.ok}")
+    check(abs(c.n_inliers - g.n_inliers) <= SMALL_MASK_TOL,
+          f"small pnp: inliers cpu {c.n_inliers} gpu {g.n_inliers}")
+    diff = float(max(np.abs(c.R - g.R).max(), np.abs(c.t - g.t).max()))
+    check(diff <= SMALL_PNP_TOL, f"small pnp: pose differs by {diff}")
+    check(np.abs(g.R - R).max() < 0.01 and np.abs(g.t - t).max() < 0.01,
+          "small pnp: pose not recovered")
+    return dict(inliers_cpu=c.n_inliers, inliers_gpu=g.n_inliers,
+                max_pose_diff=diff)
+
+
+def small_mapping_ops_reference(dev):
+    """`epipolar_triangulate_batch` and `fuse_project_batch2_fr` on
+    synthetic keyframes, on the CPU and on the GPU: the compacted index
+    lists equal in order, X within SMALL_TRI_RTOL relative."""
+    from orbslam_birdview_tpu_torch.pipeline import device_ops
+
+    rng = np.random.default_rng(3)
+    n, N = 600, 3
+    K = np.array([[300, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                  rng.uniform(4, 10, n)], 1).astype(np.float32)
+    desc = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+
+    def pose(yaw, tx):
+        c, s_ = math.cos(yaw), math.sin(yaw)
+        return (np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32),
+                np.array([tx, 0, 0], np.float32))
+
+    def view(R, t, perm):
+        Xc = X @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:] * 300 + np.array([160, 120])
+        uv = uv + rng.normal(0, 0.3, uv.shape)
+        d = desc.copy()
+        d[rng.random((n, 32)) < 0.01] ^= 1
+        return uv[perm].astype(np.float32), d[perm]
+
+    R1, t1 = pose(0.0, 0.0)
+    xy1, d1 = view(R1, t1, np.arange(n))
+    poses = [pose(0.02 * (j + 1), -0.3 * (j + 1)) for j in range(N)]
+    views = [view(R, t, rng.permutation(n)) for R, t in poses]
+    R2s = np.stack([p[0] for p in poses])
+    t2s = np.stack([p[1] for p in poses])
+    xy2 = np.stack([v[0] for v in views])
+    d2 = np.stack([v[1] for v in views])
+    oct0 = np.zeros(n, np.int32)
+    nb_ok = np.array([True, True, False])
+    ls = np.array([1.2 ** (2 * l) for l in range(8)], np.float32)
+    tri_args = (R1, t1, R2s, t2s, nb_ok, K, xy1, oct0, np.ones(n, bool), d1,
+                xy2, np.zeros((N, n), np.int32), np.ones((N, n), bool), d2, ls)
+    # the duplicate-target table is sized by the landmark count, as the
+    # reference's: P must not be below the keypoint count
+    P = n
+    pos = X
+    fuse_args = (np.concatenate([R2s, R1[None]]),
+                 np.concatenate([t2s, t1[None]]),
+                 np.array([True, True, True, True]), pos, np.ones(P, bool),
+                 desc[:P], pos[::-1].copy(), np.ones(P, bool),
+                 desc[:P][::-1].copy(),
+                 np.concatenate([xy2, xy1[None]]),
+                 np.zeros((N + 1, n), np.int32), np.ones((N + 1, n), bool),
+                 np.concatenate([d2, d1[None]]))
+    intr = (300.0, 300.0, 160.0, 120.0, 320, 240)
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        def on(a):
+            return torch.as_tensor(a, device=d)
+        tri = device_ops.epipolar_triangulate_batch(*map(on, tri_args))
+        fuse = device_ops.fuse_project_batch2_fr(
+            *map(on, fuse_args), *intr, torch.full((P,), 3.0, device=d))
+        outs.append(([x.cpu().numpy() for x in tri],
+                     [x.cpu().numpy() for x in fuse]))
+    (ct, cf), (gt, gf) = outs
+    for i in (0, 1, 2, 4, 5):
+        check(np.array_equal(ct[i], gt[i]),
+              f"small triangulate: field {i} differs between cpu and gpu "
+              f"in {int((ct[i] != gt[i]).sum())} entries")
+    v = ct[4]
+    check(v.sum() > 100, f"small triangulate: {v.sum()} accepted")
+    rel = float((np.abs(ct[3][v] - gt[3][v])
+                 / np.maximum(np.abs(ct[3][v]), 1.0)).max())
+    check(rel <= SMALL_TRI_RTOL, f"small triangulate: X differs by {rel}")
+    for i in range(5):
+        check(np.array_equal(cf[i], gf[i]),
+              f"small fuse: field {i} differs between cpu and gpu")
+    check(int(cf[4]) > 100, f"small fuse: {int(cf[4])} matches")
+    return dict(triangulated=int(v.sum()), max_X_rel_diff=rel,
+                fuse_matches=int(cf[4]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -970,8 +1507,10 @@ def main() -> int:
     patch_kernel._kernel()   # builds csrc/patch_gather.cu with nvcc
     build_s = time.perf_counter() - t0
 
-    drive = render_drive()
-    kernel, slice_rec, rows, seeded = slice_phase(drive, dev)
+    drive = render_drive(SYSTEM_FRAMES)
+    seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
+    init_drive = dict(drive, frames=drive["frames"][:N_INIT_DRIVE])
+    kernel, slice_rec, rows, seeded = slice_phase(seeded_drive, dev)
     slice_rec.update(build_s=build_s, card=card)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -986,11 +1525,12 @@ def main() -> int:
     write_record()
     check_floors(slice_rec)
 
-    tracker, init_rec = init_phase(drive, dev)
+    tracker, init_rec = init_phase(init_drive, dev)
     init_rec["card"] = card
     full["init"] = init_rec
     write_record()
-    tracked_rec, tracked_rows = tracked_from_init_phase(tracker, drive, dev)
+    tracked_rec, tracked_rows = tracked_from_init_phase(tracker, init_drive,
+                                                        dev)
     init_rec["tracked_from_init"] = tracked_rec
     full["frames"]["from_init"] = tracked_rows
     init_rec["floors"] = dict(
@@ -1006,6 +1546,23 @@ def main() -> int:
     by_phase = kernel["launches_by_phase"]
     by_phase.update(init=init_rec["patch_gather_launches"],
                     from_init=tracked_rec["patch_gather_launches"])
+
+    # the SLAM loop through System: the drive, the e2e tests, lost and found
+    system_rec = dict(card=card)
+    full["system"] = system_rec
+    try:
+        _, system_rec["drive"] = system_phase(drive, dev)
+    finally:
+        write_record()
+    system_phase_checks(system_rec["drive"])
+    system_rec["e2e"] = e2e_phase(dev)
+    write_record()
+    system_rec["relocalization"] = reloc_phase(drive, dev)
+    write_record()
+    by_phase.update(system=system_rec["drive"]["patch_gather_launches"],
+                    e2e_bird=system_rec["e2e"]["patch_gather_launches"],
+                    relocalization=system_rec["relocalization"][
+                        "patch_gather_launches"])
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
@@ -1026,6 +1583,7 @@ def main() -> int:
     print(json.dumps(kernels_line))
     print(json.dumps({"slice": slice_rec}))
     print(json.dumps({"init": init_rec}))
+    print(json.dumps({"system": system_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

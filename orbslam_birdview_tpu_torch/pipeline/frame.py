@@ -43,6 +43,9 @@ class FrameData:
     _lm_ids_snapshot: Optional[tuple] = None
     _bird_slot_dev: Optional[object] = None
     _bird_ids_snapshot: Optional[tuple] = None
+    # a fused keyframe's device keypoint tensors (xy, octave, valid,
+    # desc_u8), kept for the mapper's triangulate / fuse calls
+    _kp_dev_arrays: Optional[tuple] = None
     # fused frames mint new bird landmarks at keyframe creation
     _mint_bird: bool = False
     # tracked-landmark count from the device summary (fused frames have no

@@ -5,9 +5,12 @@ values (`np.asarray` of its device arrays, `_asdict()` of its NamedTuple
 configurations); nothing of that package is imported. The result is the
 port's containers on one device, with the dtypes the port's step expects,
 so both packages can compute on the same state: the fused step's bundles,
-keypoints and frames, the map store, the BA problem, and (the other way)
-an initialization result as numpy. The system has no trained weights; the
-BoW vocabulary belongs to loop closing and is not carried.
+keypoints and frames (with their associations and pose), the map store
+(from another store's fields, or from a file the other package saved:
+`MapStore.load` reads the shared format), the tracker's and the local
+mapper's mid-run fields, the BA problem, and (the other way) an
+initialization or a PnP result as numpy. The system has no trained
+weights; the BoW vocabulary belongs to loop closing and is not carried.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..frontend.orb import ORBConfig
 from ..graph import ba
 from ..mapping.mapstore import MapStore
 from ..solvers.initializer import InitResult
+from ..solvers.pnp import PnPResult
 from .frame import FrameData
 from .fused_track import BirdMapDevice, LocalMapDevice
 
@@ -113,20 +117,86 @@ def keypoints_from_numpy(fields: Mapping, device=None) -> Keypoints:
 
 def frame_from_numpy(frame_id: int, timestamp: float, kp: Mapping,
                      bird_kp: Optional[Mapping] = None, bird_base_xyz=None,
-                     device=None) -> FrameData:
-    """A fresh, untracked `FrameData` (identity pose, no associations) from
-    the JAX package's frame: its keypoints as numpy, and in bird mode its
-    BEV keypoints and their base-frame points."""
+                     device=None, kp_mp=None, bird_mp=None, R=None, t=None,
+                     pose_ok: bool = False) -> FrameData:
+    """A `FrameData` from the JAX package's frame: its keypoints as numpy,
+    in bird mode its BEV keypoints and their base-frame points, and, for a
+    frame met mid-run, its associations (kp_mp, bird_mp), pose and
+    pose_ok. Without them the frame is fresh: identity pose, no
+    associations, not tracked."""
     dev = resolve_device(device)
     kpt = keypoints_from_numpy(kp, dev)
     fd = FrameData(frame_id=frame_id, timestamp=timestamp, kp=kpt,
-                   R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
-                   kp_mp=np.full(kpt.capacity, -1, np.int64))
+                   R=np.eye(3, dtype=np.float32) if R is None
+                   else np.array(R, np.float32),
+                   t=np.zeros(3, np.float32) if t is None
+                   else np.array(t, np.float32),
+                   kp_mp=np.full(kpt.capacity, -1, np.int64) if kp_mp is None
+                   else np.array(kp_mp, np.int64))
+    fd.pose_ok = pose_ok
     if bird_kp is not None:
         fd.bird_kp = keypoints_from_numpy(bird_kp, dev)
-        fd.bird_base_xyz = np.asarray(bird_base_xyz, np.float32)
-        fd.bird_mp = np.full(fd.bird_kp.capacity, -1, np.int64)
+        fd.bird_base_xyz = np.array(bird_base_xyz, np.float32)
+        fd.bird_mp = (np.full(fd.bird_kp.capacity, -1, np.int64)
+                      if bird_mp is None else np.array(bird_mp, np.int64))
     return fd
+
+
+# the tracker's fields the slow path and the keyframe policy read
+TRACKER_FIELDS = ("state", "ref_kf", "velocity", "last_kf_frame_id",
+                  "last_reloc_frame_id", "_kf_suppress_before", "frame_id",
+                  "_n_last_inliers")
+
+
+def tracker_fields(tracker) -> dict:
+    """The fields of TRACKER_FIELDS of a tracker of either package, as
+    plain values and numpy."""
+    out = {}
+    for k in TRACKER_FIELDS:
+        v = getattr(tracker, k)
+        out[k] = None if v is None else (np.array(v) if isinstance(
+            v, np.ndarray) else int(v))
+    return out
+
+
+def set_tracker_state(tracker, fields: Mapping, last_frame=None,
+                      trajectory=()):
+    """Give a port `Tracker` the mid-run state of another: the fields of
+    TRACKER_FIELDS (`tracker_fields` of the other tracker), its last frame
+    (a `FrameData` from `frame_from_numpy`) and its trajectory entries
+    (timestamp, ref_kf, T_rel, lost, frame_id)."""
+    from .tracking import TrajectoryEntry
+
+    for k in TRACKER_FIELDS:
+        v = fields[k]
+        setattr(tracker, k, None if v is None else (
+            np.array(v, np.float32) if k == "velocity" else int(v)))
+    tracker.last_frame = last_frame
+    tracker.trajectory = [TrajectoryEntry(float(e.timestamp), int(e.ref_kf),
+                                          np.array(e.T_rel, np.float32),
+                                          bool(e.lost), int(e.frame_id))
+                          for e in trajectory]
+    return tracker
+
+
+# the local mapper's queue and deterministic-schedule ticks
+MAPPER_FIELDS = ("_frame_tick", "_stage_tick", "_ba_tick", "recent_mp",
+                 "_kf_queue")
+
+
+def set_mapper_state(mapper, other):
+    """Give a port `LocalMapper` the queue, ticks and recent points of
+    another mapper with no stage or BA in flight."""
+    if other._kf_stage is not None or other._ba_pending is not None:
+        raise ValueError("a mapper with work in flight cannot be carried "
+                         "across: drain it first")
+    mapper._frame_tick = int(other._frame_tick)
+    mapper._stage_tick = int(other._stage_tick)
+    mapper._ba_tick = int(other._ba_tick)
+    mapper.recent_mp = [(int(a), int(b)) for a, b in other.recent_mp]
+    mapper._kf_queue.clear()
+    mapper._kf_queue.extend(int(k) for k in other._kf_queue)
+    return mapper
 
 
 def map_store(fields: Mapping) -> MapStore:
@@ -168,6 +238,15 @@ def ba_problem(problem, device=None):
             edge_set(mono_es, dev), edge_set(stereo_es, dev),
             edge_set(bird_es, dev), np.asarray(mp_ids), np.asarray(bmp_ids),
             int(n_mp), int(n_bmp), int(n_mono))
+
+
+def pnp_result_numpy(res) -> PnPResult:
+    """A `PnPResult` with numpy fields (ok and n_inliers as Python values),
+    from tensors on any device or from the JAX package's arrays."""
+    ok, R, t, inl, n = (f.detach().cpu().numpy() if isinstance(
+        f, torch.Tensor) else np.asarray(f) for f in res)
+    return PnPResult(bool(ok), R.astype(np.float32), t.astype(np.float32),
+                     inl.astype(bool), int(n))
 
 
 def init_result_numpy(res: InitResult) -> InitResult:

@@ -1,11 +1,14 @@
-"""Synthetic drive rendering with exact ground truth, in numpy and scipy.
+"""Synthetic sequences with exact ground truth, in numpy and scipy.
 
-The part of the JAX package's `utils/synth.py` that the port's tracking
-step needs — the textured box room seen by the front camera, the textured
-ground seen by the BEV camera, and `BirdSequence` — without OpenCV: the
-3×3 Gaussian is scipy's, and cv2.remap becomes bilinear sampling written
-out here. The images are close to, not bit-equal with, the OpenCV ones;
-parity tests hand one numpy image to both packages.
+The part of the JAX package's `utils/synth.py` that the port's tests and
+smoke run need — the textured wall seen by a moving camera
+(`WallSequence`), the textured box room seen by the front camera, the
+textured ground seen by the BEV camera (`BirdSequence`), and the ATE
+metric — without OpenCV: the 3×3 Gaussian is scipy's, and cv2.remap /
+cv2.warpPerspective become bilinear sampling written out here (the wall
+through the inverse of its homography). The images are close to, not
+bit-equal with, the OpenCV ones; parity tests hand one numpy image to both
+packages.
 
 `seed_fields` builds the local-map and ground-landmark bundles of a frame
 from ground truth, so the step can be judged without the mapping thread.
@@ -61,6 +64,91 @@ def sample_bilinear(tex: np.ndarray, tx: np.ndarray, ty: np.ndarray,
                                          np.clip(xx, 0, W - 1)], 0.0)
             out += wy * wx * v
     return out
+
+
+def render_wall_view(cam: PinholeCamera, tex: np.ndarray, R_cw: np.ndarray,
+                     t_cw: np.ndarray, wall_z: float,
+                     meters_per_tex: float = 0.005) -> np.ndarray:
+    """The camera view of the textured plane z = wall_z (world frame): the
+    texture warped by its homography H = K·[r1 r2 wall_z·r3 + t]·A, each
+    pixel sampled at H⁻¹·(u, v, 1), 0 outside the texture.
+
+    Texture pixel (tx, ty) maps to world (x, y) = ((tx, ty) − size/2)·mpt."""
+    size = tex.shape[0]
+    A = np.array(
+        [[meters_per_tex, 0.0, -size / 2 * meters_per_tex],
+         [0.0, meters_per_tex, -size / 2 * meters_per_tex],
+         [0.0, 0.0, 1.0]], np.float64)
+    R_cw = np.asarray(R_cw, np.float64)
+    t_cw = np.asarray(t_cw, np.float64)
+    Hc = np.column_stack([R_cw[:, 0], R_cw[:, 1], wall_z * R_cw[:, 2] + t_cw])
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
+                 np.float64)
+    Hinv = np.linalg.inv(K @ Hc @ A)
+    us, vs = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                         np.arange(cam.height, dtype=np.float64))
+    src = np.stack([us, vs, np.ones_like(us)], -1) @ Hinv.T
+    w = src[..., 2]
+    return sample_bilinear(tex, src[..., 0] / w, src[..., 1] / w, wrap=False)
+
+
+@dataclass
+class WallSequence:
+    """Camera translating laterally in front of a wall at z=wall_z, with a
+    gentle push-in; exact ground truth poses (world→cam)."""
+
+    cam: PinholeCamera
+    n_frames: int = 60
+    wall_z: float = 4.0
+    step: float = 0.02        # meters per frame along +x
+    push: float = 0.004       # meters per frame along +z
+    yaw_rate: float = 0.0
+    seed: int = 3
+
+    def __post_init__(self):
+        self.tex = make_texture(self.seed)
+
+    def gt_pose(self, i: int):
+        """Returns (R_cw, t_cw): world→camera."""
+        yaw = self.yaw_rate * i
+        c, s = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        p = np.array([self.step * i, 0.0, self.push * i], np.float32)
+        R_cw = R_wc.T
+        t_cw = -R_cw @ p
+        return R_cw, t_cw
+
+    def frame(self, i: int):
+        R_cw, t_cw = self.gt_pose(i)
+        img = render_wall_view(self.cam, self.tex, R_cw, t_cw, self.wall_z)
+        return img, (R_cw, t_cw)
+
+
+def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
+             align: bool = True, with_scale: bool = False):
+    """Absolute trajectory error after optional Umeyama alignment (the TUM
+    evaluation metric)."""
+    est = np.asarray(est_positions, np.float64)
+    gt = np.asarray(gt_positions, np.float64)
+    assert est.shape == gt.shape
+    if align:
+        mu_e, mu_g = est.mean(0), gt.mean(0)
+        E, G = est - mu_e, gt - mu_g
+        W = G.T @ E / len(est)
+        U, d, Vt = np.linalg.svd(W)
+        S = np.eye(3)
+        if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+            S[2, 2] = -1
+        R = U @ S @ Vt
+        if with_scale:
+            var_e = (E * E).sum() / len(est)
+            s = np.trace(np.diag(d) @ S) / max(var_e, 1e-12)
+        else:
+            s = 1.0
+        t = mu_g - s * R @ mu_e
+        est = (s * (R @ est.T)).T + t
+    err = np.linalg.norm(est - gt, axis=1)
+    return float(np.sqrt((err ** 2).mean()))
 
 
 def _box_walls(box_half: float):

@@ -37,9 +37,12 @@ MODULES = [
     "orbslam_birdview_tpu_torch.solvers.icp",
     "orbslam_birdview_tpu_torch.solvers.twoview",
     "orbslam_birdview_tpu_torch.solvers.initializer",
+    "orbslam_birdview_tpu_torch.solvers.epnp",
+    "orbslam_birdview_tpu_torch.solvers.pnp",
     "orbslam_birdview_tpu_torch.mapping.mapstore",
     "orbslam_birdview_tpu_torch.api",
     "orbslam_birdview_tpu_torch.api.config",
+    "orbslam_birdview_tpu_torch.api.system",
     "orbslam_birdview_tpu_torch.pipeline.device_ops",
     "orbslam_birdview_tpu_torch.pipeline.fused_track",
     "orbslam_birdview_tpu_torch.pipeline.frame",
@@ -49,6 +52,7 @@ MODULES = [
     "orbslam_birdview_tpu_torch.utils.synth",
     "orbslam_birdview_tpu_torch.utils.build",
     "orbslam_birdview_tpu_torch.utils.profiling",
+    "orbslam_birdview_tpu_torch.utils.async_fetch",
     "chip_smoke",
 ]
 
@@ -114,6 +118,22 @@ def test_entry_points_raise_without_gpu():
                                     96, 64)
     with pytest.raises(RuntimeError):
         state.local_map_device(*lm)
+
+
+def test_system_and_pnp_raise_without_gpu():
+    _no_gpu()
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.api.system import System
+    from orbslam_birdview_tpu_torch.solvers import pnp
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        System(SlamConfig(), enable_loop_closing=False)
+    X = np.zeros((8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pnp.pnp_ransac(torch.Generator(), X, X[:, :2], np.ones(8, bool),
+                       np.ones(8, np.float32))
+    assert System(SlamConfig(), enable_loop_closing=False,
+                  device="cpu").tracker.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_gpu():

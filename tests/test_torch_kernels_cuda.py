@@ -144,6 +144,30 @@ def test_init_phase_small_on_the_card(cuda):
     assert tracked["min_front_inliers"] >= 30
     assert tracked["min_bird_inliers"] >= 50
     assert tracked["max_pos_err_m"] < 0.06
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tracker.process(drive["frames"][4][0], 4.0, drive["frames"][4][1],
-                        drive["mask"])
+    # the tracker goes on from its map (the slow path: no velocity yet)
+    fd = tracker.process(drive["frames"][4][0], 4.0, drive["frames"][4][1],
+                         drive["mask"])
+    assert fd.pose_ok and tracker.velocity is not None
+
+
+@pytest.mark.cuda
+def test_small_system_on_the_card(cuda):
+    """`System.track_monocular_with_birdview` on 15 frames of the drive at
+    half size on the card: initialized on the fourth frame, every frame
+    after it tracked, keyframes minted and mapped, a metric trajectory, and
+    two patch-gather launches a frame."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as smoke
+
+    drive = smoke.render_drive(15, 0.5, 1000)
+    drive.update(P=3072, PB=1024)
+    system, rec = smoke.system_phase(drive, cuda)
+    assert rec["init_frame"] == 3 and rec["tracked_share_after_init"] == 1.0
+    assert rec["keyframes_minted"] >= 4 and rec["local_ba"]["landed"] >= 1
+    assert rec["patch_gather_launches"] == 30
+    assert rec["ate_m"] < 0.05 and abs(rec["scale_ratio"] - 1.0) < 0.02
+    assert rec["compact_overflows"] == 0 and rec["final_state_ok"]
+    assert system.tracker._K_dev.device.type == "cuda"

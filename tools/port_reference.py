@@ -9,16 +9,22 @@ a small CPU: front 475×200 with the fisheye rig's intrinsics halved and
 1000 features on 8 levels; BEV 192×192 at twice the metres per pixel (the
 same ground coverage) with 1000 features on 4 levels; P=3072, Pb=1024.
 
-Two parts, each for both packages:
+Four parts, each for both packages:
 - seeded: the fused step over the drive from bundles seeded from frame 0's
   ground truth, with and without the bird stream;
 - init: `Tracker.process` until the tracker has initialized (two-view
   initialization with the BEV ICP's metric scale, the initial map, its
   BA), then the fused step over the rest of the drive from the bundles
   `_refresh_local_map` builds, against ground truth in the reference
-  keyframe's frame with no scale alignment.
+  keyframe's frame with no scale alignment;
+- system: `System.track_monocular_with_birdview` over the drive rendered
+  to 60 frames (loop closing off in both), flushed, against ground truth in
+  the first keyframe's frame with no scale alignment;
+- wall: `System.track_monocular` over the e2e test's wall sequence (30
+  frames, 640×480, 1000 features), ATE with scale alignment.
 
-Prints one JSON object with both packages' summaries.
+Each package extracts its own keypoints from the same images. Prints one
+JSON object with both packages' summaries.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ from orbslam_birdview_tpu.pipeline import local_mapping as jlm  # noqa: E402
 from orbslam_birdview_tpu.pipeline import tracking as jtr  # noqa: E402
 
 N_FRAMES = 30
+N_SYSTEM = 60
+N_WALL = 30
 SCALE = 0.5
 P, PB = 3072, 1024
 
@@ -99,15 +107,7 @@ def jax_init(drive):
     chip_smoke's init and tracked-from-init phases, without the timings."""
     seq, frames, mask, cam = (drive[k] for k in ("seq", "frames", "mask",
                                                  "cam"))
-    pcfg = smoke.slam_config(drive, P, PB)
-    cfg = JSlamConfig(
-        camera=jcam.PinholeCamera(**cam._asdict()),
-        orb=jorb.ORBConfig(**drive["cfg"]._asdict()),
-        bird_orb=jorb.ORBConfig(**drive["bcfg"]._asdict()),
-        birdview=jcam.BirdviewCamera(**drive["bv"]._asdict()),
-        sensor="mono_bird")
-    cfg.tbc_quat, cfg.tbc_t = pcfg.tbc_quat, pcfg.tbc_t
-    cfg.tracking.fused_point_cap, cfg.tracking.fused_bird_cap = P, PB
+    cfg = jax_config(drive)
     store = JMapStore(kp_cap=cfg.orb.padded_capacity(),
                       bird_cap=cfg.effective_bird_orb().padded_capacity())
     tracker = jtr.Tracker(cfg, store, jlm.LocalMapper(cfg, store))
@@ -144,14 +144,104 @@ def jax_init(drive):
     return rec
 
 
+def systems(drive):
+    """Both packages' System over the drive, fed without reading any pose
+    in between (the lag queue stays full), then flushed."""
+    from orbslam_birdview_tpu.api.system import System as JSystem
+    from orbslam_birdview_tpu_torch.api.system import System
+
+    seq, frames, mask = drive["seq"], drive["frames"], drive["mask"]
+    pcfg = smoke.slam_config(drive, P, PB)
+    jcfg = jax_config(drive)
+    out = {}
+    for name, system in (("jax", JSystem(jcfg, enable_loop_closing=False)),
+                         ("port_cpu", System(pcfg, enable_loop_closing=False,
+                                             device="cpu"))):
+        t0 = time.perf_counter()
+        fds = [system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
+               for i, (img, bev, _) in enumerate(frames)]
+        system._flush()
+        ok = [fd.pose_ok for fd in fds]
+        first = ok.index(True)
+        store = system.store
+        ref = seq.gt_cam_pose(int(store.kf_frame_id[0]))
+        gts = [smoke.relative_pose(seq.gt_cam_pose(i), ref)
+               for i in range(len(frames))]
+        rec = dict(frames=len(frames), init_frame=first,
+                   tracked_after_init=int(sum(ok[first:])),
+                   keyframe_frames=store.kf_frame_id[:store.n_kf].tolist(),
+                   keyframes_alive=int(store.kf_valid.sum()),
+                   map_points=int(store.mp_valid.sum()),
+                   bird_landmarks=int(store.bmp_valid.sum()),
+                   wall_s=time.perf_counter() - t0,
+                   **smoke.trajectory_errors(fds[first:], gts[first:]))
+        if name == "port_cpu":
+            rec["mapper"] = dict(system.mapper.stats)
+        out[name] = rec
+    return out
+
+
+def walls():
+    """Both packages' System over the e2e wall sequence (mono)."""
+    from orbslam_birdview_tpu.api.system import System as JSystem
+    from orbslam_birdview_tpu.frontend.orb import ORBConfig as JORBConfig
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.api.system import System
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence, ate_rmse
+
+    seq = WallSequence(PinholeCamera(**smoke.E2E_CAM), n_frames=N_WALL,
+                       step=0.03)
+    frames = [seq.frame(i) for i in range(N_WALL)]
+    out = {}
+    for name, system in (
+            ("jax", JSystem(JSlamConfig(
+                camera=jcam.PinholeCamera(**smoke.E2E_CAM),
+                orb=JORBConfig(n_features=1000), sensor="mono"),
+                enable_loop_closing=False)),
+            ("port_cpu", System(SlamConfig(
+                camera=PinholeCamera(**smoke.E2E_CAM),
+                orb=ORBConfig(n_features=1000), sensor="mono"),
+                enable_loop_closing=False, device="cpu"))):
+        fds = [system.track_monocular(img, i / 30.0)
+               for i, (img, _) in enumerate(frames)]
+        system._flush()
+        est = np.array([-fd.R.T @ fd.t for fd in fds if fd.pose_ok])
+        gt = np.array([-R.T @ t for fd, (_, (R, t)) in zip(fds, frames)
+                       if fd.pose_ok])
+        store = system.store
+        out[name] = dict(
+            frames=N_WALL, tracked=len(est),
+            ate_with_scale=ate_rmse(est, gt, with_scale=True),
+            keyframe_frames=store.kf_frame_id[:store.n_kf].tolist(),
+            map_points=int(store.mp_valid.sum()))
+    return out
+
+
+def jax_config(drive):
+    """The JAX package's configuration of the drive, as `slam_config`."""
+    pcfg = smoke.slam_config(drive, P, PB)
+    cfg = JSlamConfig(
+        camera=jcam.PinholeCamera(**drive["cam"]._asdict()),
+        orb=jorb.ORBConfig(**drive["cfg"]._asdict()),
+        bird_orb=jorb.ORBConfig(**drive["bcfg"]._asdict()),
+        birdview=jcam.BirdviewCamera(**drive["bv"]._asdict()),
+        sensor="mono_bird")
+    cfg.tbc_quat, cfg.tbc_t = pcfg.tbc_quat, pcfg.tbc_t
+    cfg.tracking.fused_point_cap, cfg.tracking.fused_bird_cap = P, PB
+    return cfg
+
+
 def main():
-    drive = smoke.render_drive(N_FRAMES + 1, SCALE, 1000)
+    drive = smoke.render_drive(N_SYSTEM, SCALE, 1000)
     drive.update(P=P, PB=PB)
+    out = dict(system=systems(drive), wall=walls())
+    drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     cpu = torch.device("cpu")
     st = smoke.seed_state(drive["seq"], drive["frames"][0][0],
                           drive["frames"][0][1], drive["mask"], drive["cfg"],
                           drive["bcfg"], P, PB, cpu)
-    out = {}
     for bird in (True, False):
         name = "bird" if bird else "mono"
         out[name] = dict(
