@@ -121,12 +121,17 @@ MAX_INIT_POS_ERR_M = 0.06
 MAX_INIT_ROT_ERR_DEG_TRACKED = 0.5
 # initialize_two_view and bundle_adjust, CPU against GPU with fixed draws
 SMALL_INIT_TOL, SMALL_BA_TOL, SMALL_MASK_TOL = 1e-3, 1e-3, 3
-# The GPU's scatter-adds sum in an order that changes from run to run. A
-# point 10 m away over a 1 m baseline has a weakly observed depth, and one
-# whose edge sits on a chi² gate can be reclassified between the phases: 99 %
-# of the points agree to 5 mm, every point to 5 cm (four runs of the same
-# code read a largest difference of 0.8, 1.2, 2.0 and 9.3 mm).
-SMALL_BA_POINT_TOL, SMALL_BA_POINT_MAX = 5e-3, 5e-2
+# The GPU's scatter-adds sum in an order that changes from run to run, and
+# the fixed-length LM then stops at another place along the weakly observed
+# depths of the mono points (10 m away over a baseline of at most 0.9 m):
+# they move along their rays by up to ~9 mm with no inlier decision changed,
+# while the ground points, observed in 3-D, stay put (the worst of
+# SMALL_BA_GPU_RUNS runs is in chip_smoke.json under
+# slice.small_reference.bundle_adjust). So the points are held where the
+# cost observes them, their reprojections, to SMALL_BA_REPROJ_TOL pixels,
+# and every point to SMALL_BA_POINT_MAX metres.
+SMALL_BA_GPU_RUNS = 8
+SMALL_BA_REPROJ_TOL, SMALL_BA_POINT_MAX = 0.02, 5e-2
 # The SLAM loop through System on the drive: the bars of
 # tests/test_e2e.py::test_birdview_metric_scale (metric ATE < 0.05 m with no
 # scale alignment, path length within 2 %, > 200 bird landmarks); at least
@@ -915,9 +920,11 @@ def small_init_reference(dev):
 def small_ba_reference(dev):
     """`bundle_adjust` on a synthetic problem (4 cameras, 200 points, 40
     ground points; mono and bird edges, an all-invalid stereo set) on the
-    CPU and on the GPU. The scatter-adds sum in another order on the GPU:
-    costs agree to 1e-3 relative, poses to 1e-3, 99 % of the points to
-    5e-3."""
+    CPU once and on the GPU SMALL_BA_GPU_RUNS times. The scatter-adds sum
+    in another order on the GPU: every GPU run's cost agrees to 1e-3
+    relative, its poses to 1e-3, its inlier edges' reprojections to
+    SMALL_BA_REPROJ_TOL pixels and its points to SMALL_BA_POINT_MAX; the
+    result holds the worst of the runs."""
     from orbslam_birdview_tpu_torch.core import lie
     from orbslam_birdview_tpu_torch.graph import ba
 
@@ -960,37 +967,55 @@ def small_ba_reference(dev):
             edges(e_cam[:64], e_pt[:64], np.zeros((64, 3), np.float32), 1.0,
                   valid=False),
             edges(b_cam, b_pt, b_obs, 400.0))
-    out = []
-    for d in (torch.device("cpu"), dev):
+    def run(d):
         res = ba.bundle_adjust(Rp, tp, np.arange(C) < 1, np.ones(C, bool), Xp,
                                np.ones(len(Xp), bool), *sets, fx, fy, cx, cy,
                                device=d)
         check(res.points.device.type == d.type, "result on the wrong device")
-        out.append([f.cpu().numpy() for f in res])
-    c, g = out
-    check(abs(g[6] / c[6] - 1.0) <= SMALL_BA_TOL,
-          f"small BA: cost cpu {c[6]} gpu {g[6]}")
-    for i, name in ((0, "cam_R"), (1, "cam_t"), (2, "points")):
-        check(np.isfinite(g[i]).all(), f"small BA: non-finite {name}")
-    for i, name in ((0, "cam_R"), (1, "cam_t")):
-        check(np.abs(c[i] - g[i]).max() <= SMALL_BA_TOL,
-              f"small BA: {name} differ by {np.abs(c[i] - g[i]).max()}")
-    point_diff = np.abs(c[2] - g[2]).max(axis=1)
-    check(np.quantile(point_diff, 0.99) <= SMALL_BA_POINT_TOL
-          and point_diff.max() <= SMALL_BA_POINT_MAX,
-          f"small BA: points differ by {np.quantile(point_diff, 0.99)} at "
-          f"the 99th percentile, {point_diff.max()} at most")
-    for i in (3, 4, 5):
-        check(int((c[i] != g[i]).sum()) <= SMALL_MASK_TOL,
-              "small BA: inlier masks differ")
-    check(np.abs(g[1] - cam_t).max() < 0.03, "small BA: poses not recovered")
-    check(g[3][::17].mean() < 0.2 and g[3].mean() > 0.85,
-          "small BA: outliers not separated")
-    return dict(cost_cpu=float(c[6]), cost_gpu=float(g[6]),
-                max_pose_diff=float(max(np.abs(c[0] - g[0]).max(),
-                                        np.abs(c[1] - g[1]).max())),
-                p99_point_diff=float(np.quantile(point_diff, 0.99)),
-                max_point_diff=float(point_diff.max()))
+        return [f.cpu().numpy() for f in res]
+
+    def reproj(r):
+        Xc = np.einsum("eij,ej->ei", r[0][e_cam], r[2][e_pt]) + r[1][e_cam]
+        return np.stack([fx * Xc[:, 0] / Xc[:, 2],
+                         fy * Xc[:, 1] / Xc[:, 2]], 1)
+
+    c = run(torch.device("cpu"))
+    worst = dict(cost_rel_diff=0.0, max_pose_diff=0.0, p99_point_diff=0.0,
+                 max_point_diff=0.0, max_ground_point_diff=0.0,
+                 max_reproj_diff_px=0.0, mask_flips=0)
+    for _ in range(SMALL_BA_GPU_RUNS):
+        g = run(dev)
+        cost_rel = abs(g[6] / c[6] - 1.0)
+        check(cost_rel <= SMALL_BA_TOL,
+              f"small BA: cost cpu {c[6]} gpu {g[6]}")
+        for i, name in ((0, "cam_R"), (1, "cam_t"), (2, "points")):
+            check(np.isfinite(g[i]).all(), f"small BA: non-finite {name}")
+        for i, name in ((0, "cam_R"), (1, "cam_t")):
+            check(np.abs(c[i] - g[i]).max() <= SMALL_BA_TOL,
+                  f"small BA: {name} differ by {np.abs(c[i] - g[i]).max()}")
+        point_diff = np.abs(c[2] - g[2]).max(axis=1)
+        check(point_diff.max() <= SMALL_BA_POINT_MAX,
+              f"small BA: points differ by {point_diff.max()}")
+        both = c[3] & g[3]
+        du = np.abs(reproj(c) - reproj(g)).max(axis=1)[both]
+        check(du.max() <= SMALL_BA_REPROJ_TOL,
+              f"small BA: reprojections differ by {du.max()} px")
+        flips = [int((c[i] != g[i]).sum()) for i in (3, 4, 5)]
+        check(max(flips) <= SMALL_MASK_TOL, "small BA: inlier masks differ")
+        check(np.abs(g[1] - cam_t).max() < 0.03,
+              "small BA: poses not recovered")
+        check(g[3][::17].mean() < 0.2 and g[3].mean() > 0.85,
+              "small BA: outliers not separated")
+        for k, v in (("cost_rel_diff", cost_rel),
+                     ("max_pose_diff", max(np.abs(c[0] - g[0]).max(),
+                                           np.abs(c[1] - g[1]).max())),
+                     ("p99_point_diff", np.quantile(point_diff, 0.99)),
+                     ("max_point_diff", point_diff.max()),
+                     ("max_ground_point_diff", point_diff[n:].max()),
+                     ("max_reproj_diff_px", du.max()),
+                     ("mask_flips", sum(flips))):
+            worst[k] = max(worst[k], type(worst[k])(v))
+    return dict(gpu_runs=SMALL_BA_GPU_RUNS, cost_cpu=float(c[6]), **worst)
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,7 @@ class System:
         """Run the local-BA bucket ladder once before the first frame, so
         the library set-up it pays lands before the frame stream. Returns
         the number of problems run."""
-        return self.mapper.prewarm(bird=self.cfg.sensor == "mono_bird")
+        return self.mapper.prewarm()
 
     # ------------------------------------------------------------------
     # map checkpoint / resume (the store's file format, shared with the

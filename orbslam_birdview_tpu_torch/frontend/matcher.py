@@ -30,15 +30,15 @@ BIG_DIST = 1 << 14
 
 
 def hamming_matrix(desc_a_pm1, desc_b_pm1, valid_a=None, valid_b=None):
-    """(Na,256)±1 × (Nb,256)±1 -> (Na,Nb) int32 hamming distances.
-    Invalid rows/cols get BIG_DIST."""
+    """(…,Na,256)±1 × (…,Nb,256)±1 -> (…,Na,Nb) int32 hamming distances,
+    leading dimensions broadcast. Invalid rows/cols get BIG_DIST."""
     dot = torch.matmul(desc_a_pm1.to(torch.float32),
-                       desc_b_pm1.to(torch.float32).T).to(torch.int32)
+                       desc_b_pm1.to(torch.float32).mT).to(torch.int32)
     dist = torch.div(256 - dot, 2, rounding_mode="floor")
     if valid_a is not None:
-        dist = torch.where(valid_a[:, None], dist, BIG_DIST)
+        dist = torch.where(valid_a[..., :, None], dist, BIG_DIST)
     if valid_b is not None:
-        dist = torch.where(valid_b[None, :], dist, BIG_DIST)
+        dist = torch.where(valid_b[..., None, :], dist, BIG_DIST)
     return dist
 
 
@@ -81,33 +81,35 @@ def _pack_shift(n: int) -> int:
 def _packed_min(dist, axis: int):
     """(min, argmin) along `axis` in one reduction by packing
     (dist << s) | index; ties go to the lowest index. Distances must be
-    < 2^(31−s) (hamming ≤ BIG_DIST)."""
+    < 2^(31−s) (hamming ≤ BIG_DIST). `axis` counts from the front of a
+    2-D (Na,Nb) matrix; leading batch dimensions are allowed."""
+    axis = axis - 2 if axis >= 0 else axis     # -2: over a, -1: over b
     n = dist.shape[axis]
     shift = _pack_shift(n)
     iota = torch.arange(n, dtype=torch.int32, device=dist.device)
-    iota = iota[None, :] if axis == 1 else iota[:, None]
+    iota = iota if axis == -1 else iota[:, None]
     m = torch.amin((dist << shift) | iota, dim=axis)
     return m >> shift, m & ((1 << shift) - 1)
 
 
 def match_mutual(dist, max_dist: int = TH_LOW, ratio: float = 1.0):
-    """Mutual-best match with Lowe ratio test.
-    Returns (idx (Na,) int32 into b or −1, best_dist (Na,) int32)."""
+    """Mutual-best match with Lowe ratio test on (…,Na,Nb) distances.
+    Returns (idx (…,Na) int32 into b or −1, best_dist (…,Na) int32)."""
     best, idx = _packed_min(dist, axis=1)
     if ratio < 1.0:
-        shift = _pack_shift(dist.shape[1])
+        shift = _pack_shift(dist.shape[-1])
         comb = (dist << shift) | torch.arange(
-            dist.shape[1], dtype=torch.int32, device=dist.device)
+            dist.shape[-1], dtype=torch.int32, device=dist.device)
         m = (best << shift) | idx
         second = torch.amin(
-            torch.where(comb == m[:, None], BIG_DIST << shift, comb),
-            dim=1) >> shift
+            torch.where(comb == m[..., None], BIG_DIST << shift, comb),
+            dim=-1) >> shift
         ok_ratio = best.to(torch.float32) < ratio * second.to(torch.float32)
     else:
         ok_ratio = torch.ones_like(best, dtype=torch.bool)
     _, arg_b = _packed_min(dist, axis=0)
-    mutual = arg_b[idx.long()] == torch.arange(
-        dist.shape[0], dtype=torch.int32, device=dist.device)
+    mutual = torch.take_along_dim(arg_b, idx.long(), dim=-1) == torch.arange(
+        dist.shape[-2], dtype=torch.int32, device=dist.device)
     ok = (best <= max_dist) & ok_ratio & mutual
     return torch.where(ok, idx, INVALID), best
 

@@ -1,10 +1,10 @@
 """Fixed-shape (padded + masked) ops shared by the tracking and mapping
 stages: projection, the frustum test of the local-map candidates, the
 projection and frame-to-frame matchers, and the two mapping ops of a
-keyframe — epipolar triangulation against its neighbours and the
-bidirectional fuse projection — each over all neighbours in one call,
-with the accepted candidates compacted on the device before they are
-fetched.
+keyframe — epipolar triangulation against its neighbours (batched over
+the neighbour axis) and the bidirectional fuse projection (row by row) —
+each over all neighbours in one call, with the accepted candidates
+compacted on the device before they are fetched.
 """
 from __future__ import annotations
 
@@ -89,11 +89,16 @@ def epipolar_triangulate(R1, t1, R2, t2, K, kp1_xy, kp1_octave, kp1_free,
     dense masked op: match the unassociated keypoints of KF1 against KF2
     under the epipolar constraint, triangulate, and apply the acceptance
     gates (cheirality, parallax, reprojection, scale consistency).
-    Returns (idx2 (K1,), points (K1,3), ok (K1,))."""
+    KF2's arguments may carry leading batch dimensions (…), one entry per
+    neighbour. Returns (idx2 (…,K1), points (…,K1,3), ok (…,K1))."""
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+
+    def rot(X, R, t):      # X (…,n,3) in the frame of (R (…,3,3), t (…,3))
+        return X @ R.mT + t[..., None, :]
+
     # fundamental from the relative pose: F12 = K⁻ᵀ [t]x R K⁻¹, T12 = T1 T2⁻¹
-    R12 = R1 @ R2.T
-    t12 = t1 - R12 @ t2
+    R12 = R1 @ R2.mT
+    t12 = t1 - (R12 @ t2[..., None])[..., 0]
     E = lie.hat(t12) @ R12
     Kinv = torch.linalg.inv_ex(K)[0]
     F12 = Kinv.T @ E @ Kinv
@@ -101,43 +106,46 @@ def epipolar_triangulate(R1, t1, R2, t2, K, kp1_xy, kp1_octave, kp1_free,
     dist = matcher.hamming_matrix(desc1_pm1, desc2_pm1, kp1_free, kp2_free)
     # epipolar distance of kp2 to the line F12ᵀ x1
     x1h = torch.cat([kp1_xy, torch.ones_like(kp1_xy[:, :1])], -1)
-    lines = x1h @ F12  # (K1,3): line in image 2
-    num = (lines[:, None, 0] * kp2_xy[None, :, 0]
-           + lines[:, None, 1] * kp2_xy[None, :, 1] + lines[:, None, 2])
-    den = torch.clamp(lines[:, 0] ** 2 + lines[:, 1] ** 2, min=1e-12)[:, None]
+    lines = x1h @ F12  # (…,K1,3): line in image 2
+    num = (lines[..., :, None, 0] * kp2_xy[..., None, :, 0]
+           + lines[..., :, None, 1] * kp2_xy[..., None, :, 1]
+           + lines[..., :, None, 2])
+    den = torch.clamp(lines[..., 0] ** 2 + lines[..., 1] ** 2,
+                      min=1e-12)[..., None]
     d2 = num * num / den
     sig2_2 = level_sigma2[kp2_octave.long()]
-    dist = torch.where(d2 < 3.84 * sig2_2[None, :], dist, matcher.BIG_DIST)
+    dist = torch.where(d2 < 3.84 * sig2_2[..., None, :], dist,
+                       matcher.BIG_DIST)
     idx2, _ = matcher.match_mutual(dist, max_dist=matcher.TH_LOW, ratio=0.9)
     m = idx2 >= 0
     i2 = torch.where(m, idx2, 0).long()
 
     P1 = K @ torch.cat([R1, t1[:, None]], 1)
-    P2 = K @ torch.cat([R2, t2[:, None]], 1)
-    xy2 = kp2_xy[i2]
+    P2 = K @ torch.cat([R2, t2[..., None]], -1)
+    xy2 = torch.take_along_dim(kp2_xy, i2[..., None], dim=-2)
     X = triangulate_dlt(P1, P2, kp1_xy, xy2)
     finite = torch.isfinite(X).all(-1)
 
     c1 = -R1.T @ t1
-    c2 = -R2.T @ t2
-    r1 = X - c1[None]
-    r2 = X - c2[None]
+    c2 = -(R2.mT @ t2[..., None])[..., 0]
+    r1 = X - c1
+    r2 = X - c2[..., None, :]
     n1 = torch.linalg.vector_norm(r1, dim=-1)
     n2 = torch.linalg.vector_norm(r2, dim=-1)
     cos_par = (r1 * r2).sum(-1) / torch.clamp(n1 * n2, min=1e-12)
-    z1 = (X @ R1.T + t1)[:, 2]
-    z2 = (X @ R2.T + t2)[:, 2]
+    z1 = rot(X, R1, t1)[..., 2]
+    z2 = rot(X, R2, t2)[..., 2]
 
     def reproj2(R, t, xy, sig2):
-        Xc = X @ R.T + t
-        zi = 1.0 / torch.clamp(Xc[:, 2], min=1e-9)
-        u = fx * Xc[:, 0] * zi + cx
-        v = fy * Xc[:, 1] * zi + cy
-        e2 = (u - xy[:, 0]) ** 2 + (v - xy[:, 1]) ** 2
+        Xc = rot(X, R, t)
+        zi = 1.0 / torch.clamp(Xc[..., 2], min=1e-9)
+        u = fx * Xc[..., 0] * zi + cx
+        v = fy * Xc[..., 1] * zi + cy
+        e2 = (u - xy[..., 0]) ** 2 + (v - xy[..., 1]) ** 2
         return e2 / torch.clamp(sig2, min=1e-12)
 
     sig2_1 = level_sigma2[kp1_octave.long()]
-    sig2_2i = sig2_2[i2]
+    sig2_2i = torch.take_along_dim(sig2_2, i2, dim=-1)
     e1 = reproj2(R1, t1, kp1_xy, sig2_1)
     e2 = reproj2(R2, t2, xy2, sig2_2i)
     ratio_dist = n1 / torch.clamp(n2, min=1e-9)
@@ -166,21 +174,19 @@ def epipolar_triangulate_batch(R1, t1, R2s, t2s, nb_ok, K,
                                kp1_xy, kp1_octave, kp1_free, desc1_u8,
                                kp2s_xy, kp2s_octave, kp2s_free, desc2s_u8,
                                level_sigma2):
-    """All triangulation neighbours of one keyframe in one call: the
-    neighbour axis is padded (`nb_ok` masks the padding), descriptors come
-    packed and are unpacked on the device, and the accepted candidates are
-    compacted on the device in neighbour-major order (the consumer's
-    first-neighbour-wins rule depends on it) to at most TRI_COMPACT_CAP
-    rows. Returns (sel_n, sel_k1, sel_idx2, sel_X, sel_valid, n_acc)."""
-    desc1_pm1 = unpack_bits_to_pm1(desc1_u8)
-    desc2s_pm1 = unpack_bits_to_pm1(desc2s_u8)
-    rows = [epipolar_triangulate(
-        R1, t1, R2s[n], t2s[n], K, kp1_xy, kp1_octave, kp1_free, desc1_pm1,
-        kp2s_xy[n], kp2s_octave[n], kp2s_free[n] & nb_ok[n], desc2s_pm1[n],
-        level_sigma2) for n in range(R2s.shape[0])]
-    idx2 = torch.stack([r[0] for r in rows])
-    X = torch.stack([r[1] for r in rows])
-    good = torch.stack([r[2] for r in rows]) & nb_ok[:, None]
+    """All triangulation neighbours of one keyframe as one batched op over
+    the neighbour axis: that axis is padded (`nb_ok` masks the padding),
+    descriptors come packed and are unpacked on the device, and the
+    accepted candidates are compacted on the device in neighbour-major
+    order (the consumer's first-neighbour-wins rule depends on it) to at
+    most TRI_COMPACT_CAP rows.
+    Returns (sel_n, sel_k1, sel_idx2, sel_X, sel_valid, n_acc)."""
+    idx2, X, good = epipolar_triangulate(
+        R1, t1, R2s, t2s, K, kp1_xy, kp1_octave, kp1_free,
+        unpack_bits_to_pm1(desc1_u8), kp2s_xy, kp2s_octave,
+        kp2s_free & nb_ok[:, None], unpack_bits_to_pm1(desc2s_u8),
+        level_sigma2)
+    good = good & nb_ok[:, None]
     N, K1 = good.shape
     flat_ok = good.reshape(-1)
     sel, n_acc = _compact(flat_ok, TRI_COMPACT_CAP)
@@ -200,11 +206,12 @@ def _fuse_row(R, t, ok, pos, pval, pdesc_u8, kxy, koct, kval, kdesc_pm1,
 def fuse_project_batch2(R2s, t2s, nb_ok, mp_pos, mp_valid, mp_desc_u8,
                         kp2s_xy, kp2s_octave, kp2s_valid, desc2s_u8,
                         fx, fy, cx, cy, width, height, radius):
-    """`LocalMapping::SearchInNeighbors` over all rows in one call, with a
-    landmark set per row ((N,P,3) positions, (N,P) validity, (N,P,32)
-    descriptors); the (row, landmark slot, target keypoint) triples of the
-    matches are compacted on the device in row-major order to at most
-    FUSE_COMPACT_CAP. Returns (sel_row, sel_p, sel_tgt, sel_ok, n_acc)."""
+    """`LocalMapping::SearchInNeighbors` over all rows in one call that
+    matches row by row on the host's loop, with a landmark set per row
+    ((N,P,3) positions, (N,P) validity, (N,P,32) descriptors); the (row,
+    landmark slot, target keypoint) triples of the matches are compacted on
+    the device in row-major order to at most FUSE_COMPACT_CAP.
+    Returns (sel_row, sel_p, sel_tgt, sel_ok, n_acc)."""
     desc2s_pm1 = unpack_bits_to_pm1(desc2s_u8)
     idx = torch.stack([_fuse_row(
         R2s[n], t2s[n], nb_ok[n], mp_pos[n], mp_valid[n], mp_desc_u8[n],
@@ -228,13 +235,12 @@ def fuse_project_batch2_fr(R2s, t2s, nb_ok, fwd_pos, fwd_valid, fwd_desc_u8,
     """`fuse_project_batch2` where the first N−1 (forward) rows share one
     landmark set and the last row is the reverse pass, so only two (P,·)
     sets are uploaded."""
-    desc2s_pm1 = unpack_bits_to_pm1(desc2s_u8)
-    N = R2s.shape[0]
-    rows = []
-    for n in range(N):
-        pts = ((rev_pos, rev_valid, rev_desc_u8) if n == N - 1
-               else (fwd_pos, fwd_valid, fwd_desc_u8))
-        rows.append(_fuse_row(R2s[n], t2s[n], nb_ok[n], *pts, kp2s_xy[n],
-                              kp2s_octave[n], kp2s_valid[n], desc2s_pm1[n],
-                              fx, fy, cx, cy, width, height, radius))
-    return _compact_fuse(torch.stack(rows))
+    n_fwd = R2s.shape[0] - 1
+
+    def rows(fwd, rev):
+        return torch.cat([fwd.expand(n_fwd, *fwd.shape), rev[None]])
+
+    return fuse_project_batch2(
+        R2s, t2s, nb_ok, rows(fwd_pos, rev_pos), rows(fwd_valid, rev_valid),
+        rows(fwd_desc_u8, rev_desc_u8), kp2s_xy, kp2s_octave, kp2s_valid,
+        desc2s_u8, fx, fy, cx, cy, width, height, radius)

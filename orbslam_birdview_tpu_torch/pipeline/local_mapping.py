@@ -4,8 +4,8 @@ the local BA, as a pipeline stage driven by the tracker's frames.
 - `process_keyframe` queues a minted keyframe; its stages then advance one
   transition per tracked frame at fixed landing ticks (`poll_background`):
   map-point culling → triangulation against the best covisible neighbours
-  (one device call for all of them) → the bidirectional fuse (one device
-  call) → the local BA dispatch → keyframe culling;
+  (one batched device op for all of them) → the bidirectional fuse (one
+  call, a row per neighbour) → the local BA dispatch → keyframe culling;
 - the local BA (`graph/ba.py`) lands `BA_LAG_FRAMES` frames after its
   dispatch: poses and points are written back and outlier observations
   removed;
@@ -21,7 +21,6 @@ slice 3); it raises until then, and nothing here dispatches one.
 """
 from __future__ import annotations
 
-import os
 from collections import deque
 
 import numpy as np
@@ -175,8 +174,7 @@ class LocalMapper:
     # keyframe event itself pays for host bookkeeping and one dispatch.
     # ------------------------------------------------------------------
     def process_keyframe(self, kf: int):
-        if (os.environ.get("ORB_SYNC_MAPPING")
-                or self.cfg.tracking.synchronous):
+        if self.cfg.tracking.synchronous:
             # deterministic/debug: run the whole keyframe path blocking
             self.drain_kf_stages()
             self.finalize_ba(block=True)
@@ -273,7 +271,7 @@ class LocalMapper:
         return changed
 
     # ------------------------------------------------------------------
-    def prewarm(self, bird: bool = False):  # bird kept for API stability
+    def prewarm(self):
         """Run the local-BA bucket ladder once on dummy problems, so the
         first keyframes of a run do not pay the libraries' set-up (cuBLAS
         and cuSOLVER handles, the caching allocator's first blocks) inside
@@ -345,7 +343,7 @@ class LocalMapper:
 
     # ------------------------------------------------------------------
     def _dispatch_triangulate(self, kf: int):
-        """CreateNewMapPoints, dispatch half: ONE device call covering
+        """CreateNewMapPoints, dispatch half: one batched device op over
         every triangulation neighbour, and the start of its fetch."""
         store = self.store
         cfg = self.cfg
@@ -362,7 +360,7 @@ class LocalMapper:
         if not good:
             return None
         free1 = store.kf_kp_valid[kf] & (store.kf_kp_mp[kf] < 0)
-        # all neighbours in ONE call: the neighbour axis padded to the
+        # all neighbours in ONE batched op: the neighbour axis padded to the
         # config bucket, the padding masked
         nbs = np.asarray(good + [good[-1]] * (n_pad - len(good)), np.int64)
         nb_ok = np.zeros(n_pad, bool)
@@ -440,8 +438,8 @@ class LocalMapper:
         """SearchInNeighbors, dispatch half. BOTH directions of the
         reference pass: kf's points into all fuse neighbours, and the union
         of the neighbours' points into kf (the reverse half attaches a new
-        keyframe to its predecessors' fresh landmarks). One device call and
-        one fetch for everything."""
+        keyframe to its predecessors' fresh landmarks). One call, matching
+        row by row, and one fetch for everything."""
         store = self.store
         cam = self.cfg.camera
         dev = self.device

@@ -174,8 +174,8 @@ def fit_fundamental_ransac(source, xy1, xy2, valid, sigma: float,
 # ---------------------------------------------------------------------------
 
 def triangulate_dlt(P1, P2, xy1, xy2):
-    """Batched linear triangulation. P1,P2 (…,3,4); xy1,xy2 (N,2) ->
-    (…,N,3).
+    """Batched linear triangulation. P1,P2 (…,3,4); xy1,xy2 (…,N,2) ->
+    (…,N,3), leading dimensions broadcast.
 
     HOMOGENEOUS DLT, with the null vector of A from inverse iteration on
     the equilibrated 4x4 normal matrix instead of a batched SVD. Two
@@ -186,8 +186,8 @@ def triangulate_dlt(P1, P2, xy1, xy2):
       low-parallax points."""
     def rows(P, xy):
         Pn = P[..., None, :, :]                    # (…,1,3,4) against N
-        return (xy[:, 0:1] * Pn[..., 2, :] - Pn[..., 0, :],
-                xy[:, 1:2] * Pn[..., 2, :] - Pn[..., 1, :])
+        return (xy[..., 0:1] * Pn[..., 2, :] - Pn[..., 0, :],
+                xy[..., 1:2] * Pn[..., 2, :] - Pn[..., 1, :])
 
     r1, r2 = rows(P1, xy1)
     r3, r4 = rows(P2, xy2)

@@ -1,6 +1,10 @@
 """The slice as a whole in mono+bird mode: both packages' `System` fed the
 same raw images of the half-size bird drive (`torch_midrun`), on the CPU,
-with loop closing off on both sides.
+with loop closing off on both sides. The local-BA window is cut to 8 + 4
+keyframes in both (`torch_midrun.BA_WINDOW`) to keep the file inside its
+time budget; the default 32 + 16 window (C = 48) is held against the
+reference by `test_torch_system_mono.py`, and in bird mode at full width
+only against ground truth, by the `system` phase of `chip_smoke.py`.
 
 Each package extracts its own keypoints, so the inputs differ by the
 extractors' rounding (a few pixels of the pyramid, an ulp of an angle; see
