@@ -33,26 +33,39 @@ Phases, each of which must pass (any failure exits non-zero):
 5. tracked from init: `_refresh_local_map` turns the store into the step's
    bundles, and the drive's next 10 frames go through `track_step_mono`
    from the second keyframe's pose, against the same ground truth;
-6. system: the SLAM loop through `System.track_monocular_with_birdview` at
-   full width over 60 frames of the drive (loop closing off: slice 3),
-   after one `System.prewarm()`, then `_flush`: tracking (fused and slow
-   paths, the lag queue), keyframes, local mapping (triangulation, fuse,
-   local BA, culling). Held to the bars of tests/test_e2e.py's birdview
-   test (metric ATE < 0.05 m with no scale alignment, path length within
-   2 %, > 200 bird landmarks), >= 95 % of the frames after initialization
-   tracked, >= 4 keyframes, >= 2 local BAs landed, every keyframe's stages
-   applied, no compaction overflow, two patch-gather launches a frame;
-7. e2e: the four mono and mono+bird tests of tests/test_e2e.py on the
-   port with their own configurations and bars;
-8. relocalization: dense keyframes over 20 frames of the drive, 3 blank
+6. system: the SLAM loop through `System(cfg)` (loop closing on, the
+   packaged vocabulary) with `track_monocular_with_birdview` at full width
+   over 60 frames of the drive, after one `System.prewarm()`, then
+   `_flush`: tracking (fused and slow paths, the lag queue), keyframes,
+   local mapping (triangulation, fuse, local BA, culling) and every
+   keyframe's BoW registration. Held to the bars of tests/test_e2e.py's
+   birdview test (metric ATE < 0.05 m with no scale alignment, path
+   length within 2 %, > 200 bird landmarks), >= 95 % of the frames after
+   initialization tracked, >= 4 keyframes, >= 2 local BAs landed, every
+   keyframe's stages applied, no compaction overflow, no loop closed on
+   the straight drive, two patch-gather launches a frame;
+7. loop: the circle of tests/test_loop_closing.py (0.1 m and 2π/120 rad a
+   frame, 142 frames) at full width with the fisheye rig through
+   `System(cfg)`: at least one loop closed, the keyframes' metric ATE
+   < 0.05 m with no scale alignment after the loop and the GBA; the loop's
+   keyframe pair, Sim3, pose graph and GBA recorded; one local BA and one
+   GBA round on its map under torch.profiler;
+8. e2e: the four mono and mono+bird tests of tests/test_e2e.py on the
+   port with their own configurations and bars, loop closing on, and
+   tests/test_loop_closing.py's circle at 640×480 with its bars;
+9. relocalization: dense keyframes over 20 frames of the drive, 3 blank
    front and BEV frames (LOST, no reset), then frame 5 again, which must
-   relocalize within 0.02 m of its first pass;
-9. reference: the step, `initialize_two_view`, `bundle_adjust`,
-   `pnp_ransac` and the two compacting mapping ops on small inputs on the
-   CPU and on the GPU, which must agree.
+   relocalize within 0.02 m of its first pass (the keyframe database's
+   candidates counted);
+10. reference: the step, `initialize_two_view`, `bundle_adjust`,
+   `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
+   `optimize_sim3_two_frame`, the three pose-graph solvers and
+   `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
+   must agree.
 
 Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
-JSON line, a `system` JSON line and, last, `{"ok": true, "device": {...}}`.
+JSON line, a `system` JSON line, a `loop` JSON line and, last,
+`{"ok": true, "device": {...}}`.
 Writes the full record to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -74,6 +87,10 @@ N_MONO = 5               # seeded mono-only frames
 N_INIT_DRIVE = 14        # frames fed to initialization and tracked from it
 SYSTEM_FRAMES = 60       # frames fed to System
 RELOC_FRAMES = 20        # frames before the camera goes blind
+# the loop phase's circle: tests/test_loop_closing.py's drive (0.1 m and
+# 2π/120 rad a frame, a 1.91 m radius, room half-size 8 m), 142 frames
+LOOP_FRAMES = 142
+CIRCLE = dict(speed=0.1, yaw_rate=2 * math.pi / 120, wall_x=8.0)
 P, PB = 6144, 2048       # fused_point_cap, fused_bird_cap (api/config.py)
 BEV = 384                # BirdviewCamera default (core/camera.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -121,15 +138,21 @@ MAX_INIT_POS_ERR_M = 0.06
 MAX_INIT_ROT_ERR_DEG_TRACKED = 0.5
 # initialize_two_view and bundle_adjust, CPU against GPU with fixed draws
 SMALL_INIT_TOL, SMALL_BA_TOL, SMALL_MASK_TOL = 1e-3, 1e-3, 3
-# The GPU's scatter-adds sum in an order that changes from run to run, and
-# the fixed-length LM then stops at another place along the weakly observed
-# depths of the mono points (10 m away over a baseline of at most 0.9 m):
-# they move along their rays by up to ~9 mm with no inlier decision changed,
-# while the ground points, observed in 3-D, stay put (the worst of
-# SMALL_BA_GPU_RUNS runs is in chip_smoke.json under
-# slice.small_reference.bundle_adjust). So the points are held where the
-# cost observes them, their reprojections, to SMALL_BA_REPROJ_TOL pixels,
-# and every point to SMALL_BA_POINT_MAX metres.
+# The GPU sums in another order than the CPU, and the fixed-length LM then
+# stops at another place along the weakly observed depths of the mono
+# points (10 m away over a baseline of at most 0.9 m): they move along their
+# rays by up to ~9 mm with no inlier decision changed, while the ground
+# points, observed in 3-D, stay put (the worst of SMALL_BA_GPU_RUNS runs is
+# in chip_smoke.json under slice.small_reference.bundle_adjust). So the
+# points are held where the cost observes them, their reprojections, to
+# SMALL_BA_REPROJ_TOL pixels, and every point to SMALL_BA_POINT_MAX metres.
+# The scatter sums are deterministic (graph/segsum.py: edges sorted by
+# target once per problem, then a segment sum): the GPU runs agree bit for
+# bit. Measured by tools/scatter_ab.py on an NVIDIA H100 80GB HBM3 at
+# 700 W: mapping calls 744.267 / 712.509 ms median with index_add_,
+# 582.820 / 608.789 with the sorted sums (no cost); the two index_add_
+# runs read ATE 0.0018510 and 0.0018518 m, the two sorted runs 0.0018524 m
+# both (PERF.md).
 SMALL_BA_GPU_RUNS = 8
 SMALL_BA_REPROJ_TOL, SMALL_BA_POINT_MAX = 0.02, 5e-2
 # The SLAM loop through System on the drive: the bars of
@@ -147,9 +170,20 @@ MIN_SYSTEM_BA_LANDED = 2
 MIN_SYSTEM_BIRD_LANDMARKS = 200
 # relocalization: the bar of tests/test_e2e.py::test_relocalization_after_lost
 RELOC_MAX_M = 0.02
+# the loop phase: the bar of tests/test_loop_closing.py (metric keyframe
+# ATE < 0.05 m, no scale alignment, after the loop and the GBA). Both
+# packages on the circle at half size on the CPU (tools/port_reference.py;
+# PERF.md) closed one loop at keyframes 2 and 38, ATE 0.019 (JAX) and
+# 0.019 m (port) after two GBA rounds
+MAX_LOOP_ATE_M = 0.05
 # pnp_ransac and the two compacting mapping ops, CPU against GPU: the same
 # draws and the same integer matching; poses sum in another order
 SMALL_PNP_TOL, SMALL_TRI_RTOL = 1e-3, 5e-4
+# the loop-closing solvers, CPU against GPU: the same draws and integer
+# gates; f32 sums in another order (the parity tests' bars against the JAX
+# package: 1e-4 for the Sim3, 1e-3 / 5e-3 for the pose graphs)
+SMALL_SIM3_TOL = 1e-4
+SMALL_GRAPH_S_TOL, SMALL_GRAPH_T_TOL = 1e-3, 5e-3
 
 
 class SmokeFailure(Exception):
@@ -392,11 +426,13 @@ def summarize(rows):
         max_rot_err_deg=max(r["rot_err_deg"] for r in rows))
 
 
-def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000):
+def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000,
+                 **motion):
     """The drive every phase runs on: camera, BEV camera, extractor
     configurations, the rendered frames with their ground truth, the BEV
     footprint mask. `scale` cuts the images (and `features` the budgets)
-    for runs on a CPU."""
+    for runs on a CPU; `motion` overrides BirdSequence's speed, yaw rate
+    and room (the loop phase's circle, `CIRCLE`)."""
     from orbslam_birdview_tpu_torch.core.camera import BirdviewCamera
     from orbslam_birdview_tpu_torch.utils import synth
 
@@ -405,7 +441,7 @@ def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000):
                         width=round(BEV * scale), height=round(BEV * scale))
     cfg, bcfg = configs(features, features)
     t0 = time.perf_counter()
-    seq = synth.BirdSequence(cam, bv, n_frames=n_frames)
+    seq = synth.BirdSequence(cam, bv, n_frames=n_frames, **motion)
     frames = [seq.frame(i) for i in range(n_frames)]
     mask = synth.footprint_mask(bv)
     return dict(cam=cam, bv=bv, cfg=cfg, bcfg=bcfg, seq=seq, frames=frames,
@@ -918,13 +954,75 @@ def small_init_reference(dev):
 
 
 def small_ba_reference(dev):
-    """`bundle_adjust` on a synthetic problem (4 cameras, 200 points, 40
-    ground points; mono and bird edges, an all-invalid stereo set) on the
-    CPU once and on the GPU SMALL_BA_GPU_RUNS times. The scatter-adds sum
-    in another order on the GPU: every GPU run's cost agrees to 1e-3
-    relative, its poses to 1e-3, its inlier edges' reprojections to
-    SMALL_BA_REPROJ_TOL pixels and its points to SMALL_BA_POINT_MAX; the
-    result holds the worst of the runs."""
+    """`bundle_adjust` on `small_ba_problem` on the CPU once and on the
+    GPU SMALL_BA_GPU_RUNS times. The GPU sums in another order: every GPU
+    run's cost agrees to 1e-3 relative, its poses to 1e-3, its inlier
+    edges' reprojections to SMALL_BA_REPROJ_TOL pixels and its points to
+    SMALL_BA_POINT_MAX; the result holds the worst of the runs. The
+    scatter sums are deterministic: the GPU runs must agree bit for bit."""
+    from orbslam_birdview_tpu_torch.graph import ba
+
+    prob = small_ba_problem()
+    args, reproj = prob["args"], prob["reproj"]
+    cam_t, n = prob["cam_t"], prob["n"]
+
+    def run(d):
+        res = ba.bundle_adjust(*args, device=d)
+        check(res.points.device.type == d.type, "result on the wrong device")
+        return [f.cpu().numpy() for f in res]
+
+    c = run(torch.device("cpu"))
+    worst = dict(cost_rel_diff=0.0, max_pose_diff=0.0, p99_point_diff=0.0,
+                 max_point_diff=0.0, max_ground_point_diff=0.0,
+                 max_reproj_diff_px=0.0, mask_flips=0)
+    gpu_runs = []
+    for _ in range(SMALL_BA_GPU_RUNS):
+        g = run(dev)
+        gpu_runs.append(g)
+        cost_rel = abs(g[6] / c[6] - 1.0)
+        check(cost_rel <= SMALL_BA_TOL,
+              f"small BA: cost cpu {c[6]} gpu {g[6]}")
+        for i, name in ((0, "cam_R"), (1, "cam_t"), (2, "points")):
+            check(np.isfinite(g[i]).all(), f"small BA: non-finite {name}")
+        for i, name in ((0, "cam_R"), (1, "cam_t")):
+            check(np.abs(c[i] - g[i]).max() <= SMALL_BA_TOL,
+                  f"small BA: {name} differ by {np.abs(c[i] - g[i]).max()}")
+        point_diff = np.abs(c[2] - g[2]).max(axis=1)
+        check(point_diff.max() <= SMALL_BA_POINT_MAX,
+              f"small BA: points differ by {point_diff.max()}")
+        both = c[3] & g[3]
+        du = np.abs(reproj(c) - reproj(g)).max(axis=1)[both]
+        check(du.max() <= SMALL_BA_REPROJ_TOL,
+              f"small BA: reprojections differ by {du.max()} px")
+        flips = [int((c[i] != g[i]).sum()) for i in (3, 4, 5)]
+        check(max(flips) <= SMALL_MASK_TOL, "small BA: inlier masks differ")
+        check(np.abs(g[1] - cam_t).max() < 0.03,
+              "small BA: poses not recovered")
+        check(g[3][::17].mean() < 0.2 and g[3].mean() > 0.85,
+              "small BA: outliers not separated")
+        for k, v in (("cost_rel_diff", cost_rel),
+                     ("max_pose_diff", max(np.abs(c[0] - g[0]).max(),
+                                           np.abs(c[1] - g[1]).max())),
+                     ("p99_point_diff", np.quantile(point_diff, 0.99)),
+                     ("max_point_diff", point_diff.max()),
+                     ("max_ground_point_diff", point_diff[n:].max()),
+                     ("max_reproj_diff_px", du.max()),
+                     ("mask_flips", sum(flips))):
+            worst[k] = max(worst[k], type(worst[k])(v))
+    # the scatter sums' layouts sort the edges by target (graph/segsum.py):
+    # every GPU run then gives the same bits
+    identical = all(all(np.array_equal(a, b) for a, b in zip(gpu_runs[0], r))
+                    for r in gpu_runs[1:])
+    check(identical, "small BA: GPU runs differ with deterministic sums")
+    return dict(gpu_runs=SMALL_BA_GPU_RUNS, cost_cpu=float(c[6]),
+                gpu_runs_bit_identical=identical, **worst)
+
+
+def small_ba_problem():
+    """A synthetic BA problem (4 cameras, 200 points, 40 ground points;
+    mono and bird edges, every 17th mono observation 40 px off, an
+    all-invalid stereo set): bundle_adjust's arguments, the true poses and
+    a function of a result giving the mono edges' reprojections."""
     from orbslam_birdview_tpu_torch.core import lie
     from orbslam_birdview_tpu_torch.graph import ba
 
@@ -967,55 +1065,15 @@ def small_ba_reference(dev):
             edges(e_cam[:64], e_pt[:64], np.zeros((64, 3), np.float32), 1.0,
                   valid=False),
             edges(b_cam, b_pt, b_obs, 400.0))
-    def run(d):
-        res = ba.bundle_adjust(Rp, tp, np.arange(C) < 1, np.ones(C, bool), Xp,
-                               np.ones(len(Xp), bool), *sets, fx, fy, cx, cy,
-                               device=d)
-        check(res.points.device.type == d.type, "result on the wrong device")
-        return [f.cpu().numpy() for f in res]
 
     def reproj(r):
         Xc = np.einsum("eij,ej->ei", r[0][e_cam], r[2][e_pt]) + r[1][e_cam]
         return np.stack([fx * Xc[:, 0] / Xc[:, 2],
                          fy * Xc[:, 1] / Xc[:, 2]], 1)
 
-    c = run(torch.device("cpu"))
-    worst = dict(cost_rel_diff=0.0, max_pose_diff=0.0, p99_point_diff=0.0,
-                 max_point_diff=0.0, max_ground_point_diff=0.0,
-                 max_reproj_diff_px=0.0, mask_flips=0)
-    for _ in range(SMALL_BA_GPU_RUNS):
-        g = run(dev)
-        cost_rel = abs(g[6] / c[6] - 1.0)
-        check(cost_rel <= SMALL_BA_TOL,
-              f"small BA: cost cpu {c[6]} gpu {g[6]}")
-        for i, name in ((0, "cam_R"), (1, "cam_t"), (2, "points")):
-            check(np.isfinite(g[i]).all(), f"small BA: non-finite {name}")
-        for i, name in ((0, "cam_R"), (1, "cam_t")):
-            check(np.abs(c[i] - g[i]).max() <= SMALL_BA_TOL,
-                  f"small BA: {name} differ by {np.abs(c[i] - g[i]).max()}")
-        point_diff = np.abs(c[2] - g[2]).max(axis=1)
-        check(point_diff.max() <= SMALL_BA_POINT_MAX,
-              f"small BA: points differ by {point_diff.max()}")
-        both = c[3] & g[3]
-        du = np.abs(reproj(c) - reproj(g)).max(axis=1)[both]
-        check(du.max() <= SMALL_BA_REPROJ_TOL,
-              f"small BA: reprojections differ by {du.max()} px")
-        flips = [int((c[i] != g[i]).sum()) for i in (3, 4, 5)]
-        check(max(flips) <= SMALL_MASK_TOL, "small BA: inlier masks differ")
-        check(np.abs(g[1] - cam_t).max() < 0.03,
-              "small BA: poses not recovered")
-        check(g[3][::17].mean() < 0.2 and g[3].mean() > 0.85,
-              "small BA: outliers not separated")
-        for k, v in (("cost_rel_diff", cost_rel),
-                     ("max_pose_diff", max(np.abs(c[0] - g[0]).max(),
-                                           np.abs(c[1] - g[1]).max())),
-                     ("p99_point_diff", np.quantile(point_diff, 0.99)),
-                     ("max_point_diff", point_diff.max()),
-                     ("max_ground_point_diff", point_diff[n:].max()),
-                     ("max_reproj_diff_px", du.max()),
-                     ("mask_flips", sum(flips))):
-            worst[k] = max(worst[k], type(worst[k])(v))
-    return dict(gpu_runs=SMALL_BA_GPU_RUNS, cost_cpu=float(c[6]), **worst)
+    args = (Rp, tp, np.arange(C) < 1, np.ones(C, bool), Xp,
+            np.ones(len(Xp), bool), *sets, fx, fy, cx, cy)
+    return dict(args=args, reproj=reproj, cam_t=cam_t, n=n)
 
 
 # ---------------------------------------------------------------------------
@@ -1025,12 +1083,17 @@ def small_ba_reference(dev):
 SYSTEM_STAGES = ("fused.dispatch", "fused.retire", "kf.mapper",
                  "kf.bundle_refresh", "map.tri_dispatch", "map.tri_apply",
                  "map.fuse_dispatch", "map.fuse_apply", "map.ba_dispatch",
-                 "map.kf_cull")
+                 "map.kf_cull", "map.loop")
 
 
 def make_system(cfg, dev):
+    """`System(cfg)` as a user builds it: loop closing on, the packaged
+    vocabulary loaded."""
     from orbslam_birdview_tpu_torch.api.system import System
-    return System(cfg, enable_loop_closing=False, device=dev)
+    system = System(cfg, device=dev)
+    check(system.loop_closer is not None and system.loop_closer.voc
+          is not None, "System built without its vocabulary")
+    return system
 
 
 def stage_counts(system):
@@ -1071,6 +1134,46 @@ def trajectory_errors(fds, gts):
                 ate_unaligned_m=ate_rmse(est, gt, align=False),
                 scale_ratio=float(d_est / d_gt),
                 max_pos_err_m=max(pos_errs), max_rot_err_deg=max(rot_errs))
+
+
+def keyframe_ate(store, seq):
+    """Metric ATE of the keyframe centres against ground truth, rigid
+    alignment and no scale (tests/test_loop_closing.py's measure)."""
+    from orbslam_birdview_tpu_torch.utils.synth import ate_rmse
+
+    est, gt = [], []
+    for k in store.valid_kf_ids():
+        R_g, t_g = seq.gt_cam_pose(int(store.kf_frame_id[k]))
+        est.append(-store.kf_R[k].T @ store.kf_t[k])
+        gt.append(-R_g.T @ t_g)
+    return ate_rmse(np.array(est), np.array(gt), with_scale=False)
+
+
+def watch_loop(system, seq):
+    """Record, on a System of either package, each loop correction's
+    keyframe pair and Sim3 scale, the keyframe ATE just before the first
+    GBA round lands and the GBA rounds landed. Returns the dict it fills."""
+    obs = dict(loops=[], gba_landed=0)
+    lc, mapper = system.loop_closer, system.mapper
+    correct, finalize = lc._correct_loop, mapper.finalize_gba
+
+    def correct_loop(kf, cand, S, loop_points):
+        obs["loops"].append(dict(kf=int(kf), cand=int(cand),
+                                 scale=float(S[2])))
+        return correct(kf, cand, S, loop_points)
+
+    def finalize_gba(block=False, start_fetch_only=False):
+        landing = (block and not start_fetch_only
+                   and mapper._gba_pending is not None)
+        if landing and "ate_before_gba_m" not in obs:
+            obs["ate_before_gba_m"] = keyframe_ate(system.store, seq)
+        landed = finalize(block=block, start_fetch_only=start_fetch_only)
+        obs["gba_landed"] += int(bool(landed))
+        return landed
+
+    lc._correct_loop = correct_loop
+    mapper.finalize_gba = finalize_gba
+    return obs
 
 
 def system_phase(drive, dev):
@@ -1171,6 +1274,9 @@ def system_phase(drive, dev):
                                      if not k]),
             flush=flush_ms),
         stages=stages, prewarm=dict(problems=n_warm, wall_s=prewarm_s),
+        vocab_load_ms=system.vocab_load_ms,
+        loops_closed=system.loop_closer.n_loops_closed,
+        kfdb_registered=len(system.loop_closer.kfdb.registered),
         patch_gather_launches=launches,
         final_state_ok=bool(tracker.state == tracking.OK),
         floors=dict(init_frames=MAX_INIT_FRAMES,
@@ -1180,6 +1286,125 @@ def system_phase(drive, dev):
                     ba_landed=MIN_SYSTEM_BA_LANDED,
                     bird_landmarks=MIN_SYSTEM_BIRD_LANDMARKS))
     return system, rec
+
+
+def profile_region(fn, dev):
+    """Run fn() under torch.profiler, then a device sync: the device
+    kernels it ran, their busy time, the host-clock time of the call with
+    its sync, and the device's idle share of that time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, n = 0.0, 0
+    for avg in prof.key_averages():
+        if avg.device_type != DeviceType.CUDA:
+            continue
+        busy_us += getattr(avg, "self_device_time_total",
+                           getattr(avg, "self_cuda_time_total", 0.0))
+        n += avg.count
+    busy_ms = busy_us / 1e3
+    return dict(device_kernels=n, device_busy_ms=busy_ms, wall_ms=wall_ms,
+                idle_share=1.0 - busy_ms / wall_ms)
+
+
+def profile_mapping(system, dev):
+    """One local BA (the newest keyframe's window) and one GBA round on the
+    system's map, each dispatched and synced under the profiler; both
+    results are dropped, the map stays as it was."""
+    mapper, store = system.mapper, system.store
+    kf = int(store.valid_kf_ids()[-1])
+    system._flush()
+
+    def local():
+        mapper.local_ba(kf, async_dispatch=True)
+        mapper._ba_pending["res"].cost.cpu()
+
+    def gba():
+        mapper.global_ba(iters=mapper._gba_iters, async_dispatch=True)
+        mapper._gba_pending["res"].cost.cpu()
+
+    out = {}
+    for name, fn in (("local_ba", local), ("gba_round", gba)):
+        fn()        # warm: the problem's shapes and workspaces
+        mapper._ba_pending = mapper._gba_pending = None
+        out[name] = profile_region(fn, dev)
+        mapper._ba_pending = mapper._gba_pending = None
+    out["gba_problem"] = dict(mapper.last_gba)
+    return out
+
+
+def run_circle(system, frames, mask, seq, dt):
+    """The circle through `track_monocular_with_birdview`, then `_flush`;
+    the loop's record."""
+    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    obs = watch_loop(system, seq)
+    GLOBAL_TIMER.reset()
+    t0 = time.perf_counter()
+    fds = [system.track_monocular_with_birdview(img, bev, mask, i * dt)
+           for i, (img, bev, _) in enumerate(frames)]
+    system._flush()
+    wall_s = time.perf_counter() - t0
+    lc, store = system.loop_closer, system.store
+    stages = {k: dict(n=len(v), median_ms=float(np.median(v) * 1e3),
+                      total_ms=float(np.sum(v) * 1e3))
+              for k, v in GLOBAL_TIMER.samples.items()
+              if k in ("map.loop", "map.gba_dispatch", "map.gba_apply")}
+    return dict(frames=len(frames), tracked=int(sum(fd.pose_ok for fd in fds)),
+                keyframes_alive=int(store.kf_valid.sum()),
+                loops_closed=lc.n_loops_closed,
+                loop_edges=[list(map(int, e)) for e in store.loop_edges],
+                loops=[{k: (float(v) if isinstance(v, (float, np.floating))
+                            else v) for k, v in r.items()}
+                       for r in lc.loop_log],
+                ate_before_gba_m=obs.get("ate_before_gba_m"),
+                ate_m=keyframe_ate(store, seq),
+                gba=dict(problem=dict(system.mapper.last_gba),
+                         rounds_landed=obs["gba_landed"],
+                         dispatched=system.mapper.stats["gba_dispatched"],
+                         dropped=system.mapper.stats["gba_dropped"]),
+                stages=stages, wall_s=wall_s)
+
+
+def loop_phase(dev):
+    """The circle of tests/test_loop_closing.py (CIRCLE, LOOP_FRAMES) at
+    full width with the fisheye rig through `System(cfg)`: at least one
+    loop closed and the keyframes' metric ATE under MAX_LOOP_ATE_M with no
+    scale alignment after the loop and the GBA. Then one local BA and one
+    GBA round on its map under the profiler."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+
+    drive = render_drive(LOOP_FRAMES, **CIRCLE)
+    cfg = slam_config(drive)
+    system = make_system(cfg, dev)
+    patch_kernel.LAUNCHES = 0
+    rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
+                     1 / 25.0)
+    rec.update(front=f"{cfg.camera.width}x{cfg.camera.height}",
+               bev=f"{cfg.birdview.width}x{cfg.birdview.height}",
+               features=[cfg.orb.n_features,
+                         cfg.effective_bird_orb().n_features],
+               render_s=drive["render_s"],
+               patch_gather_launches=patch_kernel.LAUNCHES,
+               floors=dict(loops=1, ate_m=MAX_LOOP_ATE_M))
+    check_launches(rec["patch_gather_launches"], LOOP_FRAMES, dev)
+    rec["profile"] = profile_mapping(system, dev)
+    return rec
+
+
+def loop_phase_checks(rec):
+    check(rec["loops_closed"] >= 1, f"circle: no loop closed ({rec['loops']})")
+    check(rec["ate_m"] < MAX_LOOP_ATE_M,
+          f"circle: metric ATE {rec['ate_m']} m after the loop and the GBA")
+    check(rec["gba"]["rounds_landed"] >= 2,
+          f"circle: {rec['gba']['rounds_landed']} GBA rounds landed")
 
 
 def system_phase_checks(rec):
@@ -1208,6 +1433,12 @@ def system_phase_checks(rec):
     check(rec["compact_overflows"] == 0,
           f"{rec['compact_overflows']} compaction overflows")
     check(rec["final_state_ok"], "the run ended LOST")
+    # a straight drive revisits nothing: no loop may close on it
+    check(rec["loops_closed"] == 0, f"{rec['loops_closed']} loops closed "
+          "on a straight drive")
+    check(rec["kfdb_registered"] == rec["stages"]["map.loop"]["n"] > 0,
+          f"{rec['kfdb_registered']} keyframes registered, "
+          f"{rec['stages']['map.loop']['n']} loop stages")
 
 
 # The e2e tests of the reference package (tests/test_e2e.py), on the port
@@ -1339,7 +1570,38 @@ def e2e_trajectory_savers(dev, out_dir):
     return dict(tum_lines=len(lines), kitti_lines=len(klines))
 
 
+def e2e_circular_loop_closure(dev):
+    """tests/test_loop_closing.py::test_circular_loop_closure: its circle,
+    640×480, 1000 features, BEV 384×384 without a mask, through
+    `System(cfg)`: at least one loop, keyframe ATE < 0.05 m with no scale
+    alignment."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core import lie
+    from orbslam_birdview_tpu_torch.core.camera import (BirdviewCamera,
+                                                        PinholeCamera)
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import BirdSequence
+
+    cam = PinholeCamera(**E2E_CAM)
+    bv = BirdviewCamera(width=384, height=384)
+    seq = BirdSequence(cam, bv, n_frames=LOOP_FRAMES, **CIRCLE)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
+                     sensor="mono_bird", birdview=bv)
+    cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
+    cfg.tbc_t = tuple(seq.t_bc.tolist())
+    frames = [seq.frame(i) for i in range(LOOP_FRAMES)]
+    patch_kernel.LAUNCHES = 0
+    rec = run_circle(make_system(cfg, dev), frames, None, seq, 1 / 25.0)
+    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    check(rec["loops_closed"] >= 1, "e2e circle: no loop closed")
+    check(rec["ate_m"] < 0.05, f"e2e circle: post-loop ATE {rec['ate_m']}")
+    return rec
+
+
 def e2e_phase(dev):
+    """The four mono / mono+bird tests of tests/test_e2e.py, with loop
+    closing on as the reference's tests run them."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
 
     patch_kernel.LAUNCHES = 0
@@ -1398,9 +1660,12 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     R1, t1 = first_pass[revisit]
     dist = float(np.linalg.norm(-fd.R.T @ fd.t + R1.T @ t1))
     check(dist < RELOC_MAX_M, f"reloc: {dist} m from the first pass")
+    counters = system.tracker.timer.counters
     return dict(frames=n_first, keyframes=n_kf, recovered=True,
                 centre_diff_m=dist, reloc_call_ms=reloc_ms,
-                pnp_calls=system.tracker.timer.counters.get("reloc.pnp", 0),
+                pnp_calls=counters.get("reloc.pnp", 0),
+                kfdb_candidates=counters.get("reloc.kfdb_candidates", 0),
+                fallback_used=counters.get("reloc.fallback", 0),
                 patch_gather_launches=patch_kernel.LAUNCHES)
 
 
@@ -1437,6 +1702,137 @@ def small_pnp_reference(dev):
           "small pnp: pose not recovered")
     return dict(inliers_cpu=c.n_inliers, inliers_gpu=g.n_inliers,
                 max_pose_diff=diff)
+
+
+def ring_graph(K=64, g=8):
+    """tests/test_graph.py's Sim3 ring: truth on a 5 m circle, estimates
+    with accumulated drift, exact chain, skip-4 and seam measurements; the
+    dense arguments and the banded (band, long) groups."""
+    theta = 2 * np.pi * np.arange(K) / K
+    c, sn = np.cos(theta), np.sin(theta)
+    R = np.zeros((K, 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1] = c, sn, -sn, c
+    R[:, 2, 2] = 1.0
+    centers = np.stack([5 * c, 5 * sn, np.zeros(K)], 1)
+    t_gt = -np.einsum("kij,kj->ki", R, centers).astype(np.float32)
+    vt = (t_gt + np.linspace(0, 1, K)[:, None]
+          * np.array([0.15, -0.1, 0.05])).astype(np.float32)
+    ei = np.concatenate([np.arange(K - 1), np.arange(K - 4), [K - 1]])
+    ej = np.concatenate([np.arange(1, K), np.arange(4, K), [0]])
+    mR = np.einsum("eab,ecb->eac", R[ej], R[ei]).astype(np.float32)
+    mt = (t_gt[ej] - np.einsum("eab,eb->ea", mR, t_gt[ei])).astype(np.float32)
+    E = len(ei)
+    fixed = np.arange(K) == 0
+    ones = np.ones(K, np.float32)
+    dense = (R, vt, ones, fixed, ei, ej, mR, mt, np.ones(E, np.float32),
+             np.ones(E, np.float32), np.ones(E, bool))
+    swap = ei > ej
+    i2, j2 = np.where(swap, ej, ei), np.where(swap, ei, ej)
+    Rt = np.swapaxes(mR, 1, 2)
+    mR2 = np.where(swap[:, None, None], Rt, mR)
+    mt2 = np.where(swap[:, None], -np.einsum("nij,nj->ni", Rt, mt), mt)
+    band = (j2 - i2) <= g
+
+    def grp(m):
+        n = int(m.sum())
+        return (i2[m], j2[m], mR2[m], mt2[m].astype(np.float32),
+                np.ones(n, np.float32), np.ones(n, np.float32),
+                np.ones(n, bool))
+
+    return dense, (R, vt, ones, fixed, *grp(band), *grp(~band))
+
+
+def small_loop_reference(dev):
+    """The loop-closing solvers on small inputs on the CPU and on the GPU:
+    `sim3_ransac` from the same draws (the same inlier mask; R, t and s
+    within SMALL_SIM3_TOL), `optimize_sim3_two_frame` (the same inliers,
+    the Sim3 within SMALL_SIM3_TOL), the dense, PCG and banded pose graphs
+    on a 64-vertex drift ring (scales within SMALL_GRAPH_S_TOL,
+    translations within SMALL_GRAPH_T_TOL) and `bundle_adjust_large` on the
+    small BA problem (poses within SMALL_BA_TOL, reprojections within
+    SMALL_BA_REPROJ_TOL)."""
+    from orbslam_birdview_tpu_torch.core import lie
+    from orbslam_birdview_tpu_torch.graph import ba_large, pose_graph
+    from orbslam_birdview_tpu_torch.graph.sim3_opt import \
+        optimize_sim3_two_frame
+    from orbslam_birdview_tpu_torch.solvers import ransac, sim3
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(4)
+    n = 400
+    p2 = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                   rng.uniform(4, 9, n)], 1).astype(np.float32)
+    R, t, s = (x.numpy() for x in lie.sim3_exp(torch.tensor(
+        [0.1, -0.05, 0.2, 0.02, 0.05, -0.03, math.log(1.3)])))
+    p1 = (s * p2 @ R.T + t).astype(np.float32)
+    p1[:60] += rng.normal(0, 1.0, (60, 3)).astype(np.float32)
+    intr = (500.0, 500.0, 320.0, 240.0)
+    uv1 = np.stack([500 * p1[:, 0] / p1[:, 2] + 320,
+                    500 * p1[:, 1] / p1[:, 2] + 240], 1).astype(np.float32)
+    uv2 = np.stack([500 * p2[:, 0] / p2[:, 2] + 320,
+                    500 * p2[:, 1] / p2[:, 2] + 240], 1).astype(np.float32)
+    uv1 += rng.normal(0, 0.5, uv1.shape).astype(np.float32)
+    valid = np.ones(n, bool)
+    err = np.full(n, 9.21, np.float32)
+    draws = ransac.draw(torch.Generator().manual_seed(7), 256, 3, cpu)
+    out = {}
+    res = {d.type: sim3.fetch_result(sim3.sim3_ransac(
+        draws, p1, p2, valid, err, err, *intr, *intr, device=d))
+        for d in (cpu, dev)}
+    c, g = res["cpu"], res[dev.type]
+    check(c.ok and g.ok and np.array_equal(c.inliers, g.inliers),
+          f"small sim3_ransac: cpu {c.n_inliers} gpu {g.n_inliers} inliers")
+    diff = float(max(np.abs(c.R - g.R).max(), np.abs(c.t - g.t).max(),
+                     abs(c.s - g.s)))
+    check(diff <= SMALL_SIM3_TOL, f"small sim3_ransac: Sim3 differs by {diff}")
+    out["sim3_ransac"] = dict(inliers=c.n_inliers, scale=c.s, max_diff=diff)
+    info = np.ones(n, np.float32)
+    opt = {d.type: [x.cpu().numpy() for x in optimize_sim3_two_frame(
+        c.R, c.t, c.s, p1, p2, uv1, uv2, info, info, valid, *intr, iters=12,
+        device=d)] for d in (cpu, dev)}
+    c, g = opt["cpu"], opt[dev.type]
+    check(np.array_equal(c[3], g[3]), "small optimize_sim3_two_frame: "
+          f"inliers differ in {int((c[3] != g[3]).sum())}")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(c[:3], g[:3]))
+    check(diff <= SMALL_SIM3_TOL,
+          f"small optimize_sim3_two_frame: Sim3 differs by {diff}")
+    out["optimize_sim3_two_frame"] = dict(inliers=int(c[4]),
+                                          scale=float(c[2]), max_diff=diff)
+    dense, banded = ring_graph()
+    for name, fn, args, kw in (
+            ("dense", pose_graph.optimize_sim3_graph, dense, dict(n_iters=15)),
+            ("pcg", pose_graph.optimize_sim3_graph_pcg, dense,
+             dict(n_iters=30)),
+            ("banded", pose_graph.optimize_sim3_graph_banded, banded,
+             dict(g=8, n_iters=15))):
+        c, g = ([x.cpu().numpy() for x in fn(*args, device=d, **kw)]
+                for d in (cpu, dev))
+        ds, dt = float(np.abs(c[2] - g[2]).max()), float(
+            np.abs(c[1] - g[1]).max())
+        check(ds <= SMALL_GRAPH_S_TOL and dt <= SMALL_GRAPH_T_TOL,
+              f"small pose graph {name}: s differs by {ds}, t by {dt}")
+        check(np.isfinite(g[3]) and g[3] <= 1.01 * c[3] + 1e-6,
+              f"small pose graph {name}: cost cpu {c[3]} gpu {g[3]}")
+        out[f"pose_graph_{name}"] = dict(cost_cpu=float(c[3]),
+                                         cost_gpu=float(g[3]), max_s_diff=ds,
+                                         max_t_diff=dt)
+    prob = small_ba_problem()
+    c, g = ([f.cpu().numpy() for f in ba_large.bundle_adjust_large(
+        *prob["args"], device=d)] for d in (cpu, dev))
+    dp = max(np.abs(c[0] - g[0]).max(), np.abs(c[1] - g[1]).max())
+    check(dp <= SMALL_BA_TOL, f"small bundle_adjust_large: poses differ by "
+          f"{dp}")
+    both = c[3] & g[3]
+    du = np.abs(prob["reproj"](c) - prob["reproj"](g)).max(axis=1)[both]
+    check(du.max() <= SMALL_BA_REPROJ_TOL,
+          f"small bundle_adjust_large: reprojections differ by {du.max()} px")
+    check(int((c[3] != g[3]).sum()) <= SMALL_MASK_TOL,
+          "small bundle_adjust_large: inlier masks differ")
+    out["bundle_adjust_large"] = dict(cost_cpu=float(c[6]),
+                                      cost_gpu=float(g[6]),
+                                      max_pose_diff=float(dp),
+                                      max_reproj_diff_px=float(du.max()))
+    return out
 
 
 def small_mapping_ops_reference(dev):
@@ -1526,12 +1922,12 @@ def main() -> int:
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
     patch_kernel._kernel()   # builds csrc/patch_gather.cu with nvcc
     build_s = time.perf_counter() - t0
-
     drive = render_drive(SYSTEM_FRAMES)
     seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     init_drive = dict(drive, frames=drive["frames"][:N_INIT_DRIVE])
@@ -1580,12 +1976,23 @@ def main() -> int:
     finally:
         write_record()
     system_phase_checks(system_rec["drive"])
+    loop_rec = dict(card=card)
+    full["loop"] = loop_rec
+    try:
+        loop_rec["circle"] = loop_phase(dev)
+    finally:
+        write_record()
+    loop_phase_checks(loop_rec["circle"])
     system_rec["e2e"] = e2e_phase(dev)
+    write_record()
+    loop_rec["e2e_circle"] = e2e_circular_loop_closure(dev)
     write_record()
     system_rec["relocalization"] = reloc_phase(drive, dev)
     write_record()
     by_phase.update(system=system_rec["drive"]["patch_gather_launches"],
+                    loop=loop_rec["circle"]["patch_gather_launches"],
                     e2e_bird=system_rec["e2e"]["patch_gather_launches"],
+                    e2e_loop=loop_rec["e2e_circle"]["patch_gather_launches"],
                     relocalization=system_rec["relocalization"][
                         "patch_gather_launches"])
     check(all(n > 0 for n in by_phase.values()),
@@ -1599,6 +2006,8 @@ def main() -> int:
     slice_rec["profile"] = {k: v for k, v in prof.items() if k != "top"}
     full["frames"]["profile_top"] = prof["top"]
     slice_rec["small_reference"] = reference_phase(dev)
+    loop_rec["small_reference"] = small_loop_reference(dev)
+    loop_rec["script_s"] = time.perf_counter() - t_start
     write_record()
 
     kernels_line = {"kernels": [{k: kernel[k] for k in (
@@ -1609,6 +2018,7 @@ def main() -> int:
     print(json.dumps({"slice": slice_rec}))
     print(json.dumps({"init": init_rec}))
     print(json.dumps({"system": system_rec}))
+    print(json.dumps({"loop": {k: v for k, v in loop_rec.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

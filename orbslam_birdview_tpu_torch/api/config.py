@@ -105,10 +105,10 @@ class SlamConfig:
     mapping: MappingConfig = field(default_factory=MappingConfig)
     max_keyframes: int = 256
     sensor: str = "mono"     # mono | stereo | rgbd | mono_bird
-    # vocabulary source: "auto" loads the packaged 100k-word artifact at
-    # System construction; a path loads that file (.npz native, or DBoW2
-    # .txt/.bin); None disables the up-front load and falls back to the
-    # in-run 10^4-word bootstrap
+    # vocabulary source: "auto" loads the package's own 100k-word file
+    # (data/vocab_100k.npz) at System construction; a path loads that file
+    # (.npz native, or DBoW2 .txt/.bin); None disables the up-front load
+    # and falls back to the in-run 10^4-word bootstrap
     vocab_path: Optional[str] = "auto"
     fps: float = 30.0
     depth_threshold: float = 40.0  # ThDepth * baseline, stereo/RGBD

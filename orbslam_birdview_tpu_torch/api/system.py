@@ -2,16 +2,17 @@
 per-frame entry points for every sensor mode, the localization-mode
 switch, reset, map save/load, state queries and trajectory savers in
 TUM/KITTI/odometry formats. Single-process and explicitly scheduled: the
-tracker drives local mapping at fixed frame ticks, no thread runs beside
-it.
+tracker drives local mapping, and local mapping drives loop closing, at
+fixed frame ticks.
 
-Loop closing (the BoW vocabulary, the keyframe database, Sim3, the pose
-graph and the full-map BA) is slice 3 of the port (ROADMAP Queue 1 item
-12): `enable_loop_closing=True` raises until then. The stereo and RGB-D
-entry points raise until slice 4.
+Loop closing is on by default, with the packaged vocabulary
+(`cfg.vocab_path = "auto"`). The stereo and RGB-D entry points raise
+until slice 4.
 """
 from __future__ import annotations
 
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -19,35 +20,74 @@ import torch
 
 from .. import resolve_device
 from ..core import lie
+from ..mapping import vocab as vocab_mod
 from ..mapping.mapstore import MapStore
 from ..pipeline.local_mapping import LocalMapper
+from ..pipeline.loop_closing import LoopCloser
 from ..pipeline.tracking import LOST, Tracker
 from .config import SlamConfig
+
+DEFAULT_VOCABULARY = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "vocab_100k.npz")
+
+
+def _load_default_vocabulary(cfg: SlamConfig):
+    """The vocabulary loaded up front, as the reference's `System`
+    constructor does. cfg.vocab_path: "auto" -> the port's packaged
+    100k-word file; a path -> that file (.npz native, DBoW2 .txt / .bin);
+    None -> none (the loop closer then trains a 10⁴-word vocabulary from
+    the map's descriptors mid-run)."""
+    path = cfg.vocab_path
+    if path is None:
+        return None
+    if path == "auto":
+        path = DEFAULT_VOCABULARY
+        if not os.path.exists(path):
+            return None
+    return vocab_mod.load_dbow2(path)
 
 
 class System:
     def __init__(self, cfg: SlamConfig, vocabulary=None,
                  enable_loop_closing: bool = True, device=None):
-        if enable_loop_closing or vocabulary is not None:
-            raise NotImplementedError(
-                "loop closing (vocabulary, keyframe database, Sim3, pose "
-                "graph, full-map BA) is ported with slice 3, ROADMAP Queue 1 "
-                "item 12; pass enable_loop_closing=False")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.enable_loop_closing = enable_loop_closing
+        t0 = time.perf_counter()
+        if enable_loop_closing and vocabulary is None:
+            vocabulary = _load_default_vocabulary(cfg)
+        self.vocab_load_ms = (time.perf_counter() - t0) * 1e3
         self.loop_closer = None
-        self._build(self._make_store(cfg))
+        self._build(self._make_store(cfg), vocabulary)
         self.localization_only = False
         # deferred mode-switch requests from other threads (a viewer):
         # applied at the start of the next track_* call
         self._reset_requested = False
         self._loc_mode_requested: Optional[bool] = None
 
-    def _build(self, store: MapStore):
+    def _build(self, store: MapStore, vocabulary=None,
+               register: bool = False):
+        """A fresh mapper and tracker on `store`, and with loop closing a
+        fresh loop closer attached to both; `register` adds the store's
+        keyframes to its database (a loaded map)."""
         self.store = store
         self.mapper = LocalMapper(self.cfg, store, device=self.device)
         self.tracker = Tracker(self.cfg, store, self.mapper,
                                device=self.device)
+        if not self.enable_loop_closing:
+            return
+        self.loop_closer = LoopCloser(self.cfg, store, self.mapper,
+                                      vocabulary=vocabulary)
+        self.mapper.loop_closer = self.loop_closer
+        self.tracker.loop_closer = self.loop_closer
+        if register and self.loop_closer.kfdb is not None:
+            for kf in store.valid_kf_ids():
+                self.loop_closer.kfdb.add_keyframe(
+                    int(kf), self.loop_closer._kp_of(int(kf)))
+
+    def _vocabulary(self):
+        return self.loop_closer.voc if self.loop_closer is not None else None
 
     @staticmethod
     def _make_store(cfg: SlamConfig) -> MapStore:
@@ -128,7 +168,7 @@ class System:
 
     def reset(self):
         self._flush()
-        self._build(self._make_store(self.cfg))
+        self._build(self._make_store(self.cfg), self._vocabulary())
 
     def shutdown(self):
         pass  # no threads to join; kept for API parity
@@ -148,8 +188,9 @@ class System:
         self.store.save(path)
 
     def load_map(self, path: str):
-        """Load a saved map and relocalize against it."""
-        self._build(MapStore.load(path))
+        """Load a saved map and relocalize against it; its keyframes are
+        registered in the keyframe database again."""
+        self._build(MapStore.load(path), self._vocabulary(), register=True)
         self.tracker.state = LOST
 
     # ------------------------------------------------------------------

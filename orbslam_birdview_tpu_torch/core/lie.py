@@ -1,10 +1,11 @@
-"""SO3 / SE3 Lie-group operations in PyTorch (SE3 part of the reference's
-`core/lie.py`; Sim3 follows with loop closing).
+"""SO3 / SE3 / Sim3 Lie-group operations in PyTorch.
 
 Conventions as in the reference: the SE3 tangent is [rho(3), phi(3)]
-(translation first) and updates are LEFT-multiplicative, T <- exp(xi) T.
-Every branch is a `torch.where` over Taylor fallbacks whose untaken side is
-finite, so gradients stay finite at the identity.
+(translation first), the Sim3 tangent [rho(3), phi(3), sigma(1)], and
+updates are LEFT-multiplicative, T <- exp(xi) T. Every branch is a
+`torch.where` over Taylor fallbacks whose untaken side is finite, so
+gradients stay finite at the identity: autograd, like JAX, multiplies the
+untaken branch's gradient by zero, and 0·NaN is NaN.
 """
 from __future__ import annotations
 
@@ -83,12 +84,31 @@ def so3_left_jacobian(w):
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
+def so3_left_jacobian_inv(w):
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-14))
+    W = hat(w)
+    small = theta2 < _EPS
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    half = safe * 0.5
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.sin(half)) / (safe * safe))
+    return _eye_like(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
+
+
 def se3_exp(xi):
     """(…,6) [rho, phi] -> (R, t)."""
     rho, phi = xi[..., :3], xi[..., 3:]
     R = so3_exp(phi)
     V = so3_left_jacobian(phi)
     return R, torch.einsum("...ij,...j->...i", V, rho)
+
+
+def se3_log(R, t):
+    phi = so3_log(R)
+    rho = torch.einsum("...ij,...j->...i", so3_left_jacobian_inv(phi), t)
+    return torch.cat([rho, phi], dim=-1)
 
 
 def se3_mul(Ra, ta, Rb, tb):
@@ -155,3 +175,94 @@ def rot_to_quat(R):
                                 torch.where(use2[..., None], c2, c3)))
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Sim3: (R, t, s), used by loop closing. Tangent [rho(3), phi(3), sigma(1)].
+# ---------------------------------------------------------------------------
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    return (Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb)
+            + ta, sa * sb)
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return (Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t),
+            s_inv)
+
+
+def _sim3_V(phi, sigma):
+    """V with exp([rho, phi, sigma]) = (exp(phi), V·rho, e^sigma): the
+    closed form of g2o's sim3.h, V = A·I + B·W + C·W², its four cases
+    (sigma and theta small or not) chosen by `where` over finite
+    stand-ins."""
+    s = torch.exp(sigma)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-14))
+    W = hat(phi)
+    W2 = W @ W
+    eps = 1e-6
+    sigma_small = torch.abs(sigma) < eps
+    theta_small = theta < eps
+    safe_sigma = torch.where(sigma_small, torch.ones_like(sigma), sigma)
+    safe_theta = torch.where(theta_small, torch.ones_like(theta), theta)
+
+    # both small
+    A_ss = 1.0 + sigma / 2.0
+    B_ss = torch.zeros_like(sigma)
+    C_ss = torch.full_like(sigma, 1.0 / 6.0)
+    # sigma small, theta not
+    A_st = torch.ones_like(sigma)
+    B_st = (1.0 - torch.cos(safe_theta)) / torch.clamp(theta2, min=eps)
+    C_st = ((safe_theta - torch.sin(safe_theta))
+            / torch.clamp(theta2 * safe_theta, min=eps))
+    # sigma not small, theta small
+    A_ts = (s - 1.0) / safe_sigma
+    B_ts = ((s * safe_sigma - s + 1.0)
+            / torch.clamp(safe_sigma * safe_sigma, min=eps))
+    C_ts = ((s - 1.0) / safe_sigma - (s * safe_sigma - s + 1.0)
+            / torch.clamp(safe_sigma * safe_sigma, min=eps)) \
+        / torch.clamp(theta2, min=eps)
+    C_ts = torch.where(theta_small, torch.zeros_like(C_ts), C_ts)
+    # general
+    a = s * torch.sin(safe_theta)
+    b = s * torch.cos(safe_theta)
+    c = theta2 + safe_sigma * safe_sigma
+    A_g = (s - 1.0) / safe_sigma
+    B_g = ((a * safe_sigma + (1.0 - b) * safe_theta)
+           / torch.clamp(safe_theta * c, min=eps))
+    C_g = (A_g - ((b - 1.0) * safe_sigma + a * safe_theta)
+           / torch.clamp(c, min=eps)) / torch.clamp(theta2, min=eps)
+
+    A = torch.where(sigma_small, torch.where(theta_small, A_ss, A_st),
+                    torch.where(theta_small, A_ts, A_g))
+    B = torch.where(sigma_small, torch.where(theta_small, B_ss, B_st),
+                    torch.where(theta_small, torch.zeros_like(B_ts), B_g))
+    C = torch.where(sigma_small, torch.where(theta_small, C_ss, C_st),
+                    torch.where(theta_small, C_ts, C_g))
+    return (A[..., None, None] * _eye_like(W) + B[..., None, None] * W
+            + C[..., None, None] * W2)
+
+
+def sim3_exp(xi):
+    """(…,7) [rho, phi, sigma] -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    V = _sim3_V(phi, sigma)
+    return (so3_exp(phi), torch.einsum("...ij,...j->...i", V, rho),
+            torch.exp(sigma))
+
+
+def sim3_log(R, t, s):
+    """(R, t, s) -> (…,7): rho solves V·rho = t (solve_ex: no
+    singularity check, so no host sync on CUDA)."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    V = _sim3_V(phi, sigma)
+    rho = torch.linalg.solve_ex(V, t[..., None]).result[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -15,9 +15,9 @@ between the two phases (5.991 / 7.815 gates) follow ORB-SLAM2's 5+10
 iteration local-BA protocol.
 
 The LM loop has a fixed length and accepts or rejects each step with
-`torch.where` on a device flag: no host sync. The scatter-adds
-(`index_add_`) sum in no fixed order on CUDA, so the CPU and the GPU agree
-to f32 round-off, not bit for bit.
+`torch.where` on a device flag: no host sync. The scatter sums go through
+`segsum.SegmentSum`, whose layouts are built once per problem: a BA run
+twice on the card gives the same bits.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..core import lie, robust
 from . import residuals
+from .segsum import SegmentSum
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -188,28 +189,48 @@ def _gramv(Ja, w, e):
     return torch.sum(Ja * (w[:, None] * e)[:, :, None], dim=1)
 
 
-def _assemble(cam_R, cam_t, points, edge_sets, intr, use_huber, C, P):
+class Layouts(NamedTuple):
+    """The scatter layouts of one problem's edges, all types concatenated
+    in the order of `edge_sets`: to cameras, to points, and to the flat
+    (camera, point) index of the coupling W."""
+
+    cam: SegmentSum
+    pt: SegmentSum
+    cam_pt: SegmentSum
+
+
+def layouts(edge_sets, C, P) -> Layouts:
+    cams = torch.cat([es.cam for _, es in edge_sets if es is not None])
+    pts = torch.cat([es.pt for _, es in edge_sets if es is not None])
+    return Layouts(SegmentSum(cams, C), SegmentSum(pts, P),
+                   SegmentSum(cams.long() * P + pts.long(), C * P))
+
+
+def _assemble(cam_R, cam_t, points, edge_sets, intr, use_huber, lay):
+    """The normal equations' blocks, every edge type summed in one pass
+    per target through the problem's layouts."""
     dtype, dev = cam_R.dtype, cam_R.device
-    Hcc = torch.zeros((C, 6, 6), dtype=dtype, device=dev)
-    bc = torch.zeros((C, 6), dtype=dtype, device=dev)
-    Hpp = torch.zeros((P, 3, 3), dtype=dtype, device=dev)
-    bp = torch.zeros((P, 3), dtype=dtype, device=dev)
-    # W is accumulated camera-major with one flat (camera, point) index per
-    # edge, and handed on in the (C, 6, P, 3) layout
-    Wcp = torch.zeros((C * P, 6, 3), dtype=dtype, device=dev)
     total_cost = torch.zeros((), dtype=dtype, device=dev)
+    acc, bcs, app, bps, wcp = [], [], [], [], []
     for kind, es in edge_sets:
         if es is None:
             continue
         e, Jc, Jp, w, cost, _, _ = _edge_terms(
             kind, cam_R, cam_t, points, es, intr, use_huber)
         total_cost = total_cost + cost
-        Hcc.index_add_(0, es.cam, _gram(Jc, w, Jc))
-        bc.index_add_(0, es.cam, _gramv(Jc, w, e))
-        Hpp.index_add_(0, es.pt, _gram(Jp, w, Jp))
-        bp.index_add_(0, es.pt, _gramv(Jp, w, e))
-        Wcp.index_add_(0, es.cam * P + es.pt, _gram(Jc, w, Jp))  # (E,6,3)
-    W = Wcp.view(C, P, 6, 3).permute(0, 2, 1, 3)
+        acc.append(_gram(Jc, w, Jc))
+        bcs.append(_gramv(Jc, w, e))
+        app.append(_gram(Jp, w, Jp))
+        bps.append(_gramv(Jp, w, e))
+        wcp.append(_gram(Jc, w, Jp))                       # (E,6,3)
+    C, P = lay.cam.n, lay.pt.n
+    Hcc = lay.cam(torch.cat(acc))
+    bc = lay.cam(torch.cat(bcs))
+    Hpp = lay.pt(torch.cat(app))
+    bp = lay.pt(torch.cat(bps))
+    # W is summed camera-major over the flat (camera, point) index and
+    # handed on in the (C, 6, P, 3) layout
+    W = lay.cam_pt(torch.cat(wcp)).view(C, P, 6, 3).permute(0, 2, 1, 3)
     return Hcc, bc, Hpp, bp, W, total_cost
 
 
@@ -306,13 +327,17 @@ def bundle_adjust(
             n_refs.index_add_(0, es.pt, es.valid.to(torch.int32))
     pt_free = point_valid & (n_refs > 0)
 
+    msets = [("mono", mono), ("stereo", stereo), ("bird", bird)]
+    # the edges stay fixed across every iteration: one layout per problem
+    lay = layouts(msets, C, P)
+
     def run_phase(state, n_iters, use_huber, msets):
         cam_R, cam_t, points = state
         lam = torch.tensor(1e-4, dtype=dtype, device=dev)
         cost = torch.zeros((), dtype=dtype, device=dev)
         for _ in range(n_iters):
             Hcc, bc, Hpp, bp, W, cost0 = _assemble(
-                cam_R, cam_t, points, msets, intr, use_huber, C, P)
+                cam_R, cam_t, points, msets, intr, use_huber, lay)
             dxc, dxp = _schur_solve(
                 Hcc, bc, Hpp, bp, W, lam, cam_free, pt_free, C, P)
             Rn, tn = lie.se3_update_left(cam_R, cam_t, dxc)
@@ -333,7 +358,6 @@ def bundle_adjust(
             cost = torch.where(ok, cost1, cost0)
         return (cam_R, cam_t, points), cost
 
-    msets = [("mono", mono), ("stereo", stereo), ("bird", bird)]
     state = (cam_R, cam_t, points)
     state, _ = run_phase(state, iters_phase1, True, msets)
 

@@ -3,8 +3,8 @@
 Conventions as in the reference: the camera pose is Tcw (world→camera) with
 a LEFT-multiplicative SE3 tangent [rho, phi]; residual e = observation −
 prediction; Jacobians are ∂e/∂ξ (camera) and ∂e/∂X (landmark). The
-point-transfer, relative-pose and Sim3 edges follow with the slices that
-use them.
+relative-pose edges return residuals only: the pose graph takes their
+Jacobians by autodiff.
 """
 from __future__ import annotations
 
@@ -102,3 +102,30 @@ def bird_point(R, t, Xw, obs_pc):
     e = obs_pc - Xc
     Jxi_xc, _ = _xc_jacs(Xc, R)
     return e, -Jxi_xc, -R.expand(Xc.shape[:-1] + (3, 3))
+
+
+def point_transform(R12, t12, pc2, pc1_obs):
+    """Frame-to-frame point transfer: e = pc1_obs − T12 · pc2, Jacobian
+    wrt T12."""
+    p1 = _rot(R12, pc2) + t12
+    Jxi_xc, _ = _xc_jacs(p1, R12)
+    return pc1_obs - p1, -Jxi_xc
+
+
+def se3_relative(Ri, ti, Rj, tj, Rij_meas, tij_meas):
+    """SE3 relative-pose edge: e = log(T_meas⁻¹ · Ti · Tj⁻¹)."""
+    Rm_inv, tm_inv = lie.se3_inv(Rij_meas, tij_meas)
+    Rj_inv, tj_inv = lie.se3_inv(Rj, tj)
+    R1, t1 = lie.se3_mul(Ri, ti, Rj_inv, tj_inv)
+    R2, t2 = lie.se3_mul(Rm_inv, tm_inv, R1, t1)
+    return lie.se3_log(R2, t2)
+
+
+def sim3_relative(Ri, ti, si, Rj, tj, sj, Rij, tij, sij):
+    """Sim3 relative-pose edge of the essential graph:
+    e = log(S_ji_meas · S_iw · S_jw⁻¹), zero when S_jw = S_ji · S_iw (the
+    measurement maps frame i into frame j)."""
+    Rj_inv, tj_inv, sj_inv = lie.sim3_inv(Rj, tj, sj)
+    R1, t1, s1 = lie.sim3_mul(Ri, ti, si, Rj_inv, tj_inv, sj_inv)
+    R2, t2, s2 = lie.sim3_mul(Rij, tij, sij, R1, t1, s1)
+    return lie.sim3_log(R2, t2, s2)

@@ -1,23 +1,27 @@
-"""Local mapping: keyframe processing, triangulation, fusing, culling and
-the local BA, as a pipeline stage driven by the tracker's frames.
+"""Local mapping: keyframe processing, triangulation, fusing, culling, the
+local BA and the full-map BA, as a pipeline stage driven by the tracker's
+frames.
 
 - `process_keyframe` queues a minted keyframe; its stages then advance one
   transition per tracked frame at fixed landing ticks (`poll_background`):
   map-point culling → triangulation against the best covisible neighbours
   (one batched device op for all of them) → the bidirectional fuse (one
-  call, a row per neighbour) → the local BA dispatch → keyframe culling;
+  call, a row per neighbour) → the local BA dispatch → keyframe culling →
+  loop closing (`loop_closer.process_keyframe`, stage `map.loop`);
 - the local BA (`graph/ba.py`) lands `BA_LAG_FRAMES` frames after its
   dispatch: poses and points are written back and outlier observations
   removed;
+- the full-map BA that a loop correction dispatches (`global_ba`) lands
+  `GBA_LAG_FRAMES` frames later (`finalize_gba`), keyframes and points
+  made meanwhile corrected through the spanning tree; a second round is
+  chained on landing;
 - `_gather_ba_problem` extracts a padded BA problem from the map store;
   `initial_global_ba` is the two-keyframe BA that ends initialization.
 
 Every device result is fetched in one transfer per stage
 (`utils/async_fetch.BackgroundFetch`), started at dispatch and folded in
 only at the stage's landing tick, so the map is a function of the frame
-index alone. The full-map BA that loop closing runs (`global_ba`,
-`finalize_gba`) is ported with loop closing (ROADMAP Queue 1 item 12,
-slice 3); it raises until then, and nothing here dispatches one.
+index alone.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 from .. import resolve_device
 from ..api.config import SlamConfig
 from ..core.camera import camera_to_base_extrinsics
-from ..graph import ba
+from ..graph import ba, ba_large
 from ..mapping.mapstore import MapStore
 from ..utils.async_fetch import BackgroundFetch
 from ..utils.profiling import GLOBAL_TIMER
@@ -41,13 +45,15 @@ from . import device_ops
 # of the frame index on any host.
 STAGE_LAG_FRAMES = 2   # keyframe stage (triangulate / fuse) advance
 BA_LAG_FRAMES = 6      # local-BA writeback
+GBA_LAG_FRAMES = 12    # global-BA writeback (full-map solve)
 # fuse batch row layout, shared by _dispatch_fuse and _apply_fuse: the
 # reverse-pass row id is FUSE_ROW_PAD-1, so both sides MUST agree
 FUSE_FWD_ROWS = 10
 FUSE_ROW_PAD = FUSE_FWD_ROWS + 1
 
-# the reference's public methods that wait for slice 3 (loop closing)
-_UNPORTED = ("global_ba", "finalize_gba")
+# the dense-W BA's (C, 6, P, 3) coupling tensor above this size switches
+# the full-map BA to the matrix-free solver (`ba_large`)
+DENSE_W_MAX_BYTES = 128 << 20
 
 
 def pow2_bucket(n, lo, hi):
@@ -75,8 +81,12 @@ class LocalMapper:
             [cfg.orb.scale_factor ** l for l in range(cfg.orb.n_levels)],
             np.float32,
         )
+        self.loop_closer = None   # attached by System
         self._kf_queue: deque = deque()  # minted, stages not started
         self._ba_pending = None   # in-flight local BA (finalize_ba)
+        self._gba_pending = None  # in-flight global BA (finalize_gba)
+        self._gba_rounds_left = 0  # GBA rounds still to chain on landing
+        self._gba_tick = 0        # tick when the pending GBA dispatched
         self._kf_stage = None     # keyframe mapping pipeline stage
         # deterministic-schedule ticks (see STAGE/BA_LAG_FRAMES above)
         self._frame_tick = 0      # incremented once per tracked frame
@@ -88,15 +98,18 @@ class LocalMapper:
         # what the mapper did, for logs and checks
         self.stats = dict(tri_applied=0, fuse_applied=0, ba_dispatched=0,
                           ba_landed=0, ba_dropped=0, kf_culled=0,
-                          points_culled=0)
+                          points_culled=0, gba_dispatched=0, gba_landed=0,
+                          gba_dropped=0)
+        # the last full-map BA's problem: C, P, edges, solver
+        self.last_gba: dict = {}
         # device-resident per-keyframe keypoint arrays (xy, octave, valid,
         # desc_u8), registered at mint time from the fused frame's own
         # device outputs: the triangulate / fuse calls stack them instead
         # of uploading every neighbour's keypoints from the host
         self._kf_dev: dict[int, tuple] = {}
-        # bumped on LARGE pose rewrites (the full-map BA of loop closing):
-        # the tracker's device pose chain is valid while it is unchanged.
-        # Local-BA landings do not bump it.
+        # bumped on LARGE pose rewrites (a GBA writeback; loop corrections
+        # bump store.correction_epoch): the tracker's device pose chain is
+        # valid while both are unchanged. Local-BA landings do not bump it.
         self.pose_epoch = 0
 
     def register_kf_device(self, kf: int, xy, octave, valid, desc_u8):
@@ -142,8 +155,11 @@ class LocalMapper:
 
     def poll_background(self) -> bool:
         """Called once per tracked frame: advance the keyframe stages (one
-        transition at its landing tick) and land the local BA at its tick.
-        Returns True only when POSES moved (a BA landed)."""
+        transition at its landing tick), land the local BA and the global
+        BA at their ticks, and chain the next GBA round when one lands.
+        Returns True only when POSES moved: a BA landed, or a loop
+        correction (which can run inside the keyframe stage) rewrote them."""
+        epoch0 = self.store.correction_epoch
         self._frame_tick += 1
         if self._kf_stage is None:
             if self._kf_queue:
@@ -159,13 +175,36 @@ class LocalMapper:
                 poses_moved = self.finalize_ba(block=True)
             else:
                 self.finalize_ba(start_fetch_only=True)
+        poses_moved |= self.store.correction_epoch != epoch0
+        if self._gba_pending is not None:
+            due = self._frame_tick - self._gba_tick >= GBA_LAG_FRAMES
+            if due and self.finalize_gba(block=True):
+                poses_moved = True
+                self._chain_gba()
+            elif not due:
+                self.finalize_gba(start_fetch_only=True)
         return poses_moved
+
+    def _chain_gba(self):
+        if self._gba_rounds_left > 0:
+            self._gba_rounds_left -= 1
+            self.global_ba(iters=self._gba_iters, async_dispatch=True)
 
     def drain_background(self):
         """Blocking drain: finish the keyframe stage pipeline (queued
-        keyframes included), then land the local BA."""
+        keyframes included), land the local BA, install a finished
+        vocabulary, then land every remaining GBA round."""
         self.drain_kf_stages()
         self.finalize_ba(block=True)
+        if self.loop_closer is not None:
+            # a trained vocabulary must land even when the run ends before
+            # its fixed keyframe tick
+            self.loop_closer.flush_vocab()
+        while self._gba_pending is not None:
+            self.finalize_gba(block=True)
+            self._chain_gba()
+
+    _gba_iters = (5, 5)
 
     # ------------------------------------------------------------------
     # keyframe processing as an overlapped stage pipeline: each stage
@@ -201,8 +240,8 @@ class LocalMapper:
 
     def _advance_kf_stage(self, block: bool = False, budget=None) -> bool:
         """Advance the keyframe mapping pipeline: triangulate -> fuse ->
-        {local BA dispatch, keyframe culling}; when the slot frees up, start
-        the next queued keyframe's stages.
+        {local BA dispatch, keyframe culling, loop closing}; when the slot
+        frees up, start the next queued keyframe's stages.
 
         A stage's result is folded in ONLY by a `block=True` call at its
         landing tick (poll_background) or a drain. `budget` caps the number
@@ -267,6 +306,10 @@ class LocalMapper:
                         self.local_ba(kf, async_dispatch=True)
                 with T.stage("map.kf_cull"):
                     self._cull_keyframes(kf)
+                if self.loop_closer is not None:
+                    with T.stage("map.loop"):
+                        self.loop_closer.process_keyframe(kf)
+                        changed = True
                 self._kf_stage = None
         return changed
 
@@ -857,6 +900,160 @@ class LocalMapper:
         return True
 
     # ------------------------------------------------------------------
+    def global_ba(self, iters=(5, 5), async_dispatch: bool = False):
+        """Full-map BA: ALL keyframes and landmarks, only keyframe 0 fixed
+        (`GlobalBundleAdjustemntWithBirdview`). Cameras, points and each
+        edge type are bucketed to powers of two. The solver: the dense-W
+        `ba.bundle_adjust` while its (C,6,P,3) coupling tensor fits
+        DENSE_W_MAX_BYTES, else the matrix-free `ba_large`.
+
+        With `async_dispatch` the solve is queued and `finalize_gba` lands
+        it at its tick; tracking frames run meanwhile, and keyframes and
+        points created meanwhile are corrected by spanning-tree propagation
+        at landing. (The sharded multi-device solve is ROADMAP Queue 1 item
+        14; this is the one-device path whatever the device count.)"""
+        store = self.store
+        cam = self.cfg.camera
+        valid = store.valid_kf_ids()
+        if len(valid) < 2:
+            return
+        C = 1 << max(int(np.ceil(np.log2(len(valid)))), 2)
+        n_pts = int(store.mp_valid.sum() + store.bmp_valid.sum())
+        point_cap = 1 << max(int(np.ceil(np.log2(max(n_pts, 1)))), 8)
+
+        def bucket(n):
+            # per-type edge buckets from the actual counts
+            return 1 << max(int(np.ceil(np.log2(max(n, 1)))), 10)
+
+        n_front = int((store.kf_kp_mp[: store.n_kf] >= 0).sum())
+        n_bird_e = int((store.kf_bird_mp[: store.n_kf] >= 0).sum())
+        window = valid
+        (all_kfs, cam_R, cam_t, fixed, cam_valid, points, pvalid,
+         mono_es, stereo_es, bird_es, mp_ids, bmp_ids, n_mp, n_bmp,
+         _) = self._gather_ba_problem(window, np.zeros(0, np.int64),
+                                      pad_to=C, point_cap=point_cap,
+                                      edge_cap=bucket(n_front),
+                                      stereo_cap=bucket(n_front),
+                                      bird_cap=bucket(n_bird_e))
+        # only keyframe 0 is anchored (padding slots stay fixed)
+        fixed_np = np.ones(C, bool)
+        fixed_np[: len(window)] = False
+        fixed_np[: len(all_kfs)][all_kfs == 0] = True
+        dense_w_bytes = C * 6 * point_cap * 3 * 4
+        large = dense_w_bytes > DENSE_W_MAX_BYTES
+        solver = ba_large.bundle_adjust_large if large else ba.bundle_adjust
+        with GLOBAL_TIMER.stage("map.gba_dispatch"):
+            res = solver(
+                cam_R, cam_t, torch.as_tensor(fixed_np, device=self.device),
+                cam_valid, points, pvalid, mono_es, stereo_es, bird_es,
+                cam.fx, cam.fy, cam.cx, cam.cy, bf=cam.bf,
+                iters_phase1=iters[0], iters_phase2=iters[1],
+                device=self.device)
+        self.last_gba = dict(
+            C=C, P=int(points.shape[0]), n_kf=len(window),
+            n_points=n_mp + n_bmp,
+            edges=int(sum(int(es.cam.shape[0]) for es in
+                          (mono_es, stereo_es, bird_es) if es is not None)),
+            solver="large" if large else "dense-W")
+        if self._gba_pending is not None:
+            self.stats["gba_dropped"] += 1
+        self.stats["gba_dispatched"] += 1
+        self._gba_pending = dict(
+            res=res, window=window, mp_ids=mp_ids, bmp_ids=bmp_ids,
+            n_mp=n_mp, n_bmp=n_bmp, n_kf_snap=store.n_kf,
+            n_mp_snap=store.n_mp, n_bmp_snap=store.n_bmp,
+            epoch=store.correction_epoch)
+        self._gba_tick = self._frame_tick
+        if not async_dispatch:
+            self.finalize_gba(block=True)
+
+    def finalize_gba(self, block: bool = False,
+                     start_fetch_only: bool = False) -> bool:
+        """Land an in-flight global BA (only on a `block=True` call;
+        otherwise start its fetch). Keyframes and landmarks created while
+        it ran are not in the solve: they are moved with their spanning-
+        tree parent / reference keyframe (`RunGlobalBundleAdjustment`'s
+        tail). A GBA dispatched before a newer loop correction is dropped.
+        Returns True when a writeback happened."""
+        pend = self._gba_pending
+        if pend is None:
+            return False
+        fetch = pend.get("fetch")
+        if fetch is None:
+            res = pend["res"]
+            n_pts = pend["n_mp"] + pend["n_bmp"]
+            nw = len(pend["window"])
+            fetch = pend["fetch"] = BackgroundFetch(
+                (res.cam_R[:nw], res.cam_t[:nw], res.points[:n_pts]))
+        if not block or start_fetch_only:
+            return False
+        with GLOBAL_TIMER.stage("map.gba_apply"):
+            arrays = fetch.get()
+            self._gba_pending = None
+            store = self.store
+            if store.correction_epoch != pend["epoch"]:
+                self.stats["gba_dropped"] += 1
+                return False
+            self._apply_gba(pend, *arrays)
+        self.stats["gba_landed"] += 1
+        return True
+
+    def _apply_gba(self, pend, camR_out, camt_out, pts_out):
+        store = self.store
+        window, mp_ids, bmp_ids = \
+            pend["window"], pend["mp_ids"], pend["bmp_ids"]
+        n_mp, n_bmp = pend["n_mp"], pend["n_bmp"]
+        # old poses of every keyframe alive now, for the propagation
+        old_R = store.kf_R[: store.n_kf].copy()
+        old_t = store.kf_t[: store.n_kf].copy()
+        in_gba = np.zeros(store.n_kf, bool)
+        in_gba[window[window < store.n_kf]] = True
+        nw = len(window)
+        live = store.kf_valid[window]
+        store.kf_R[window[live]] = camR_out[:nw][live]
+        store.kf_t[window[live]] = camt_out[:nw][live]
+        mp_live = store.mp_valid[mp_ids]
+        store.mp_pos[mp_ids[mp_live]] = pts_out[:n_mp][mp_live]
+        if n_bmp:
+            b_live = store.bmp_valid[bmp_ids]
+            store.bmp_pos[bmp_ids[b_live]] = \
+                pts_out[n_mp: n_mp + n_bmp][b_live]
+        # keyframes created after the dispatch, in id order (each one's
+        # spanning-tree parent is corrected before it)
+        corrected = in_gba.copy()
+        for k in range(pend["n_kf_snap"], store.n_kf):
+            if not store.kf_valid[k]:
+                continue
+            p = int(store.kf_parent[k])
+            if p < 0 or p >= store.n_kf or not corrected[p]:
+                continue
+            # T_new(k) = T_old(k) · T_old(p)⁻¹ · T_new(p)
+            R_rel = old_R[k] @ old_R[p].T
+            t_rel = old_t[k] - R_rel @ old_t[p]
+            store.kf_R[k] = (R_rel @ store.kf_R[p]).astype(np.float32)
+            store.kf_t[k] = (R_rel @ store.kf_t[p] + t_rel).astype(np.float32)
+            corrected[k] = True
+        # points created after the dispatch, through their reference KF
+        for ids_new, pos, valid, ref in (
+            (np.arange(pend["n_mp_snap"], store.n_mp), store.mp_pos,
+             store.mp_valid, store.mp_ref_kf),
+            (np.arange(pend["n_bmp_snap"], store.n_bmp), store.bmp_pos,
+             store.bmp_valid, store.bmp_ref_kf),
+        ):
+            if len(ids_new) == 0:
+                continue
+            ids_new = ids_new[valid[ids_new]]
+            refs = ref[ids_new]
+            ok = (refs >= 0) & (refs < store.n_kf) & corrected[refs.clip(0)]
+            for i, r in zip(ids_new[ok], refs[ok]):
+                r = int(r)
+                Xc = old_R[r] @ pos[i] + old_t[r]
+                pos[i] = (store.kf_R[r].T @ (Xc - store.kf_t[r])
+                          ).astype(np.float32)
+        self.pose_epoch += 1
+        store.big_change_idx += 1
+
+    # ------------------------------------------------------------------
     def _cull_keyframes(self, kf: int):
         """KeyFrameCulling: a local KF is redundant if >= 90 % of its
         landmarks are observed by >= 3 OTHER keyframes at the same or finer
@@ -891,15 +1088,3 @@ class LocalMapper:
                 store.erase_keyframe(cand)
                 self.stats["kf_culled"] += 1
 
-
-def _unported(name):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"LocalMapper.{name} is not ported yet: the full-map BA comes "
-            "with loop closing (slice 3, ROADMAP Queue 1 item 12)")
-    method.__name__ = name
-    return method
-
-
-for _name in _UNPORTED:
-    setattr(LocalMapper, _name, _unported(_name))

@@ -15,8 +15,8 @@ A host-side state machine driving fixed-shape device ops:
   retires through the slow path instead;
 - the slow path: motion model → reference keyframe → local map
   (`_track_motion_model`, `_track_reference_kf`, `_track_local_map`), and
-  in state LOST relocalization by EPnP-RANSAC against the last keyframes
-  (`_relocalize`);
+  in state LOST relocalization by EPnP-RANSAC against the keyframe
+  database's candidates, or the last keyframes (`_relocalize`);
 - the keyframe policy (`_need_new_keyframe`) and the keyframe mint, now or
   deferred by `KF_MINT_LAG` frames while its keypoints ride home
   (`_create_keyframe`, `_complete_pending_keyframe`), which hands every
@@ -127,6 +127,7 @@ class Tracker:
         self.cfg = cfg
         self.store = store
         self.mapper = mapper
+        self.loop_closer = None  # attached by System
         self.device = resolve_device(device)
         self.state = NOT_INITIALIZED
         self.last_frame: Optional[FrameData] = None
@@ -1367,8 +1368,18 @@ class Tracker:
         return False
 
     def _reloc_candidates(self, fd: FrameData):
-        """Relocalization candidates: the last 10 valid keyframes (the BoW
-        keyframe database comes with loop closing, slice 3)."""
+        """Relocalization candidates: the BoW keyframe database's when a
+        loop closer with a database is attached and it finds any, else the
+        last 10 valid keyframes. Counted as `reloc.kfdb_candidates` and
+        `reloc.fallback`."""
+        lc = self.loop_closer
+        kfdb = lc.kfdb if lc is not None else None
+        if kfdb is not None:
+            cands = kfdb.detect_relocalization_candidates(self._kp_host(fd))
+            if len(cands):
+                self.timer.count("reloc.kfdb_candidates", len(cands))
+                return cands
+        self.timer.count("reloc.fallback")
         return self.store.valid_kf_ids()[::-1][:10]
 
     # ------------------------------------------------------------------

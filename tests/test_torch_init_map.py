@@ -314,17 +314,23 @@ def test_port_from_raw_images_through_process(drive):
     for name in ("init.match", "init.two_view", "init.map", "init.ba"):
         assert tr.timer.samples[name], name
     # the next frame is tracked from the map (the slow path: the velocity
-    # is not known yet), and what is not ported raises, naming where it
-    # waits
+    # is not known yet); the full-map BA runs on it; what is not ported
+    # raises, naming where it waits
     fd = tr.process(frames[4][0], 4.0, frames[4][1], mask)
     assert tr.state == tracking.OK and fd.pose_ok and tr.velocity is not None
     R4, t4 = seq.gt_cam_pose(4)
     R40, t40 = R4 @ R0.T, t4 - (R4 @ R0.T) @ t0
     np.testing.assert_allclose(fd.t, t40, atol=0.02)
-    assert len(local_mapping._UNPORTED) == 2
-    for name in local_mapping._UNPORTED:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            getattr(mapper, name)(1)
+    assert not hasattr(local_mapping, "_UNPORTED")
+    n_kf = int(store.kf_valid.sum())
+    pose0 = store.kf_R[0].copy(), store.kf_t[0].copy()
+    mapper.global_ba(iters=(2, 2))       # dispatched and landed at once
+    assert mapper.stats["gba_landed"] == 1 and mapper._gba_pending is None
+    assert mapper.last_gba["n_kf"] == n_kf
+    assert mapper.last_gba["solver"] == "dense-W"
+    np.testing.assert_array_equal(store.kf_R[0], pose0[0])   # kf 0 fixed
+    np.testing.assert_array_equal(store.kf_t[0], pose0[1])
+    np.testing.assert_allclose(store.kf_t[1], t21, atol=0.02)
     cfg.sensor = "rgbd"
     fresh = tracking.Tracker(cfg, MapStore(kp_cap=store.kp_cap,
                                            bird_cap=store.bird_cap),

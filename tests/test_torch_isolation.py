@@ -33,13 +33,20 @@ MODULES = [
     "orbslam_birdview_tpu_torch.graph.residuals",
     "orbslam_birdview_tpu_torch.graph.pose_opt",
     "orbslam_birdview_tpu_torch.graph.ba",
+    "orbslam_birdview_tpu_torch.graph.ba_large",
+    "orbslam_birdview_tpu_torch.graph.segsum",
+    "orbslam_birdview_tpu_torch.graph.pose_graph",
+    "orbslam_birdview_tpu_torch.graph.sim3_opt",
     "orbslam_birdview_tpu_torch.solvers.ransac",
     "orbslam_birdview_tpu_torch.solvers.icp",
     "orbslam_birdview_tpu_torch.solvers.twoview",
     "orbslam_birdview_tpu_torch.solvers.initializer",
     "orbslam_birdview_tpu_torch.solvers.epnp",
     "orbslam_birdview_tpu_torch.solvers.pnp",
+    "orbslam_birdview_tpu_torch.solvers.sim3",
     "orbslam_birdview_tpu_torch.mapping.mapstore",
+    "orbslam_birdview_tpu_torch.mapping.vocab",
+    "orbslam_birdview_tpu_torch.mapping.kfdb",
     "orbslam_birdview_tpu_torch.api",
     "orbslam_birdview_tpu_torch.api.config",
     "orbslam_birdview_tpu_torch.api.system",
@@ -47,6 +54,7 @@ MODULES = [
     "orbslam_birdview_tpu_torch.pipeline.fused_track",
     "orbslam_birdview_tpu_torch.pipeline.frame",
     "orbslam_birdview_tpu_torch.pipeline.local_mapping",
+    "orbslam_birdview_tpu_torch.pipeline.loop_closing",
     "orbslam_birdview_tpu_torch.pipeline.tracking",
     "orbslam_birdview_tpu_torch.pipeline.state",
     "orbslam_birdview_tpu_torch.utils.synth",
@@ -126,14 +134,21 @@ def test_system_and_pnp_raise_without_gpu():
     from orbslam_birdview_tpu_torch.api.system import System
     from orbslam_birdview_tpu_torch.solvers import pnp
 
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        System(SlamConfig(), enable_loop_closing=False)
+    for loop_closing in (True, False):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            System(SlamConfig(), enable_loop_closing=loop_closing)
     X = np.zeros((8, 3), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pnp.pnp_ransac(torch.Generator(), X, X[:, :2], np.ones(8, bool),
                        np.ones(8, np.float32))
     assert System(SlamConfig(), enable_loop_closing=False,
                   device="cpu").tracker.device.type == "cpu"
+    # loop closing is on by default, with the port's own vocabulary
+    system = System(SlamConfig(), device="cpu")
+    lc = system.loop_closer
+    assert lc is system.mapper.loop_closer is system.tracker.loop_closer
+    assert lc.device.type == "cpu" and lc.voc.n_words == 100000
+    assert lc.kfdb is not None
 
 
 def test_chip_smoke_refuses_without_gpu():

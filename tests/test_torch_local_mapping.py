@@ -230,9 +230,22 @@ def test_kf_dev_cache_checks_shapes_and_equals_the_upload(moment):
 
 
 def test_full_map_ba_waits_for_loop_closing(moment):
-    _, pm = mappers(moment)
-    assert lm._UNPORTED == ("global_ba", "finalize_gba")
-    for name in lm._UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(pm, name)()
+    """The full-map BA came with loop closing: both packages' `global_ba`
+    on the same map land the same poses (1e-3) and points (2e-2 m: mono
+    points move along their weakly observed rays), keyframe 0 fixed."""
+    assert not hasattr(lm, "_UNPORTED")
+    jm, pm = mappers(moment)
+    R0 = pm.store.kf_R[0].copy()
+    for mapper in (jm, pm):
+        mapper.global_ba(iters=(3, 3))
+        assert mapper._gba_pending is None
+    ps, js = pm.store, jm.store
+    assert pm.stats["gba_landed"] == 1 and pm.last_gba["solver"] == "dense-W"
+    np.testing.assert_array_equal(ps.kf_R[0], R0)
+    np.testing.assert_allclose(ps.kf_R[:ps.n_kf], js.kf_R[:js.n_kf], atol=1e-3)
+    np.testing.assert_allclose(ps.kf_t[:ps.n_kf], js.kf_t[:js.n_kf], atol=1e-3)
+    live = ps.mp_valid[:ps.n_mp]
+    np.testing.assert_allclose(ps.mp_pos[:ps.n_mp][live],
+                               js.mp_pos[:js.n_mp][live], atol=2e-2)
+    assert ps.big_change_idx == js.big_change_idx
 

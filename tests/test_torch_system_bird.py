@@ -125,8 +125,11 @@ def test_saved_maps_load_across_packages(runs, tmp_path):
 def test_what_is_not_ported_raises(runs):
     _, frames, out = runs
     cfg = out["port"][0].cfg
-    with pytest.raises(NotImplementedError, match="item 12"):
-        System(cfg, device="cpu")                 # loop closing by default
+    # loop closing is on by default and ported: the System builds with the
+    # packaged vocabulary, its database empty until keyframes come
+    system = System(cfg, device="cpu")
+    assert system.loop_closer.voc.n_words == 100000
+    assert system.loop_closer.kfdb.registered == set()
     system = System(cfg, enable_loop_closing=False, device="cpu")
     img = frames[0][0]
     with pytest.raises(NotImplementedError, match="slice 4"):

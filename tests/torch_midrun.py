@@ -70,10 +70,10 @@ def drive(n_frames):
     return seq, frames, synth.footprint_mask(BV)
 
 
-def run_port(cfg, frames, mask, stop):
+def run_port(cfg, frames, mask, stop, loop_closing=False):
     """A port System fed the frames on the CPU until `stop(system)` holds
     after a frame; returns (system, index of the last frame fed)."""
-    system = System(cfg, enable_loop_closing=False, device="cpu")
+    system = System(cfg, enable_loop_closing=loop_closing, device="cpu")
     for i, (img, bev, _) in enumerate(frames):
         system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
         if stop(system):

@@ -21,7 +21,12 @@ Four parts, each for both packages:
   to 60 frames (loop closing off in both), flushed, against ground truth in
   the first keyframe's frame with no scale alignment;
 - wall: `System.track_monocular` over the e2e test's wall sequence (30
-  frames, 640×480, 1000 features), ATE with scale alignment.
+  frames, 640×480, 1000 features), ATE with scale alignment;
+- circle: `System.track_monocular_with_birdview` with loop closing on over
+  the loop phase's circle (`chip_smoke.CIRCLE`, 142 frames) at the same
+  half size: the loops closed, each one's keyframe pair and Sim3 scale, the
+  keyframe ATE (rigid, no scale) just before the first GBA round lands and
+  at the end, the GBA rounds landed.
 
 Each package extracts its own keypoints from the same images. Prints one
 JSON object with both packages' summaries.
@@ -181,6 +186,34 @@ def systems(drive):
     return out
 
 
+def circles():
+    """Both packages' System, loop closing on, over the circle."""
+    from orbslam_birdview_tpu.api.system import System as JSystem
+    from orbslam_birdview_tpu_torch.api.system import System
+
+    drive = smoke.render_drive(smoke.LOOP_FRAMES, SCALE, 1000, **smoke.CIRCLE)
+    seq, mask = drive["seq"], drive["mask"]
+    out = {}
+    for name, make in (("jax", lambda: JSystem(jax_config(drive))),
+                       ("port_cpu", lambda: System(
+                           smoke.slam_config(drive, P, PB), device="cpu"))):
+        system = make()
+        obs = smoke.watch_loop(system, seq)
+        t0 = time.perf_counter()
+        fds = [system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
+               for i, (img, bev, _) in enumerate(drive["frames"])]
+        system._flush()
+        store = system.store
+        out[name] = dict(
+            n_loops_closed=system.loop_closer.n_loops_closed,
+            loop_edges=[list(map(int, e)) for e in store.loop_edges],
+            tracked=int(sum(fd.pose_ok for fd in fds)),
+            keyframes_alive=int(store.kf_valid.sum()),
+            ate_m=smoke.keyframe_ate(store, seq),
+            wall_s=time.perf_counter() - t0, **obs)
+    return out
+
+
 def walls():
     """Both packages' System over the e2e wall sequence (mono)."""
     from orbslam_birdview_tpu.api.system import System as JSystem
@@ -236,7 +269,7 @@ def jax_config(drive):
 def main():
     drive = smoke.render_drive(N_SYSTEM, SCALE, 1000)
     drive.update(P=P, PB=PB)
-    out = dict(system=systems(drive), wall=walls())
+    out = dict(circle=circles(), system=systems(drive), wall=walls())
     drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     cpu = torch.device("cpu")
     st = smoke.seed_state(drive["seq"], drive["frames"][0][0],
