@@ -50,22 +50,35 @@ Phases, each of which must pass (any failure exits non-zero):
    < 0.05 m with no scale alignment after the loop and the GBA; the loop's
    keyframe pair, Sim3, pose graph and GBA recorded; one local BA and one
    GBA round on its map under torch.profiler;
-8. e2e: the four mono and mono+bird tests of tests/test_e2e.py on the
-   port with their own configurations and bars, loop closing on, and
-   tests/test_loop_closing.py's circle at 640×480 with its bars;
+8. e2e: the four mono and mono+bird tests and the four stereo and RGB-D
+   tests of tests/test_e2e.py on the port with their own configurations
+   and bars, loop closing on, and tests/test_loop_closing.py's circle at
+   640×480 with its bars;
 9. relocalization: dense keyframes over 20 frames of the drive, 3 blank
    front and BEV frames (LOST, no reset), then frame 5 again, which must
    relocalize within 0.02 m of its first pass (the keyframe database's
    candidates counted);
-10. reference: the step, `initialize_two_view`, `bundle_adjust`,
+10. depth: `System.track_stereo` over 40 frames of a wall 12 m away at the
+   KITTI stereo configuration (configs/kitti00-02_stereo.yaml, 1241×376,
+   2000 features, 8-bit images, the right camera bf/fx = 0.537 m to the
+   right) and `System.track_rgbd` over 60 frames of a wall 2 m away at
+   TUM1's RGB-D one (configs/tum1_rgbd.yaml, 640×480, 1000 features, the
+   wall's exact depth in metres, distortion zeroed), loop closing on: OK
+   at frame 0, >= 95 % tracked, metric ATE < 0.05 m with no scale, the
+   patch-gather launches exactly 2 a fused and 3 a slow-path stereo
+   frame, 1 an RGB-D frame; the gather timed at the KITTI stereo frame's
+   shapes; `stereo_match` / `refine_stereo_subpixel` on the CPU against
+   the GPU. The e2e phase (8.) also runs the four stereo and RGB-D tests
+   of tests/test_e2e.py with their bars;
+11. reference: the step, `initialize_two_view`, `bundle_adjust`,
    `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
    `optimize_sim3_two_frame`, the three pose-graph solvers and
    `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
    must agree.
 
 Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
-JSON line, a `system` JSON line, a `loop` JSON line and, last,
-`{"ok": true, "device": {...}}`.
+JSON line, a `system` JSON line, a `loop` JSON line, a `depth` JSON line
+and, last, `{"ok": true, "device": {...}}`.
 Writes the full record to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -184,6 +197,35 @@ SMALL_PNP_TOL, SMALL_TRI_RTOL = 1e-3, 5e-4
 # package: 1e-4 for the Sim3, 1e-3 / 5e-3 for the pose graphs)
 SMALL_SIM3_TOL = 1e-4
 SMALL_GRAPH_S_TOL, SMALL_GRAPH_T_TOL = 1e-3, 5e-3
+# The depth phase: System.track_stereo on the KITTI stereo configuration
+# (configs/kitti00-02_stereo.yaml: 1241×376, 2000 features, 8 levels, bf
+# 386.1448, ThDepth 35) and System.track_rgbd on TUM1's RGB-D one
+# (configs/tum1_rgbd.yaml: 640×480, 1000 features, bf 40, ThDepth 40;
+# distortion set to zero, the renders being pinhole), each at its full
+# width on a textured wall. Bars: tracking OK at frame 0 (the depth
+# initialization), >= 95 % of the frames tracked, metric ATE < 0.05 m with
+# no scale alignment over the frames that see the whole textured wall (its
+# share of the image not yet falling: the wall is 10.24 m wide and the
+# KITTI camera, 12 m away, sees 20.7 m of it; from about frame 19 the
+# texture leaves the view on the left and is down to a quarter of the image
+# at frame 39). The ATE of the whole drive is recorded beside it:
+# 0.0579 m over the 40 stereo frames on an NVIDIA H100 80GB HBM3 at 700 W,
+# against 0.0070 m for the same frames with the wall's exact depth
+# (tools/stereo_vs_exact_depth.py; PERF.md), because the reference's
+# stereo refinement keeps the integer disparity of a match whose
+# refinement failed (ROADMAP Queue 3). Patch-gather launches
+# exactly: 2 a fused stereo frame (left and right in the step), 3 a
+# slow-path stereo frame (left and right for the splatted depth map, the
+# left again in make_frame), 1 an RGB-D frame.
+STEREO_FRAMES = 40
+STEREO_WALL = dict(wall_z=12.0, step=0.25, push=0.02)   # ~32 px disparity
+RGBD_FRAMES = 60
+RGBD_WALL = dict(wall_z=2.0, step=0.01, push=0.002)     # TUM's hand pace
+MIN_DEPTH_TRACKED_SHARE = 0.95
+MAX_DEPTH_ATE_M = 0.05
+# stereo_match / refine_stereo_subpixel, CPU against GPU on a small pair:
+# integer matches equal; uR from SAD sums in another order
+SMALL_STEREO_UR_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -249,10 +291,27 @@ def pose_errors(R, t, R_gt, t_gt):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(img, bev, mask, cfg, bcfg, dev):
+    """The patch gather on one front and one BEV frame (2 calls over 12
+    level shapes): see `gather_measure`."""
+    return dict(
+        name="patch_gather", route="cuda",
+        source="orbslam_birdview_tpu_torch/csrc/patch_gather.cu",
+        replaces="orbslam_birdview_tpu/frontend/patch_kernel.py:110",
+        launches=None,
+        **gather_measure([(img, cfg, None), (bev, bcfg, mask)], dev),
+        note="per frame: one front + one BEV extraction, 12 levels; ms is "
+             "the kernel's 2 launches (one per extraction), plain_ms and "
+             "library_ms their 12 per-level calls, all with the device "
+             "queue full; host_bound_ms the 2 launches as the step issues "
+             "them")
+
+
+def gather_measure(extractions, dev):
     """Hold the patch gather against its plain version on the inputs the
-    extractor gives it for one front and one BEV frame (2 calls over 12
-    level shapes) and on starts outside the image, and time the frame's 2
-    gathers."""
+    extractor gives it for each (image, ORBConfig, mask) of `extractions`
+    (one call each) and on starts outside the image, and time the calls
+    against the plain version, one PyTorch library call and the bound from
+    bytes."""
     from orbslam_birdview_tpu_torch.frontend import orb, patch_kernel
 
     calls = []
@@ -264,13 +323,14 @@ def kernel_phase(img, bev, mask, cfg, bcfg, dev):
 
     patch_kernel.gather_patches_levels = record
     try:
-        orb.extract_orb(img, cfg, device=dev)
-        orb.extract_orb(bev, bcfg, mask=mask, device=dev)
+        for img, cfg, mask in extractions:
+            orb.extract_orb(img, cfg, mask=mask, device=dev)
     finally:
         patch_kernel.gather_patches_levels = launch
-    check([len(c[0]) for c in calls] == [cfg.n_levels, bcfg.n_levels],
-          f"expected one gather of {cfg.n_levels} levels and one of "
-          f"{bcfg.n_levels}, got {[len(c[0]) for c in calls]}")
+    want = [cfg.n_levels for _, cfg, _ in extractions]
+    check([len(c[0]) for c in calls] == want,
+          f"expected gathers of {want} levels, got "
+          f"{[len(c[0]) for c in calls]}")
     # the same calls level by level: (padded, ys, xs, size) per level
     levels = [lv for pl, yl, xl, size in calls
               for lv in zip(pl, yl, xl, [size] * len(pl))]
@@ -333,19 +393,10 @@ def kernel_phase(img, bev, mask, cfg, bcfg, dev):
     # the same 2 launches as the step issues them: host wrapper included
     kernel_host_ms = cuda_ms(lambda: [launch(*c) for c in calls],
                              saturate=False)
-    return dict(
-        name="patch_gather", route="cuda",
-        source="orbslam_birdview_tpu_torch/csrc/patch_gather.cu",
-        replaces="orbslam_birdview_tpu/frontend/patch_kernel.py:110",
-        launches=None, max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=library_ms, host_bound_ms=kernel_host_ms, bytes=n_bytes,
-        level_shapes=shapes,
-        note="per frame: one front + one BEV extraction, 12 levels; ms is "
-             "the kernel's 2 launches (one per extraction), plain_ms and "
-             "library_ms their 12 per-level calls, all with the device "
-             "queue full; host_bound_ms the 2 launches as the step issues "
-             "them")
+    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=library_ms, host_bound_ms=kernel_host_ms,
+                bytes=n_bytes, level_shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -1599,9 +1650,161 @@ def e2e_circular_loop_closure(dev):
     return rec
 
 
+E2E_BASELINE_M = 0.08   # the depth tests' 8 cm stereo baseline
+
+
+def e2e_depth_config(sensor):
+    """The depth tests' configuration: E2E_CAM with bf = fx·0.08, 1000
+    features, ThDepth·b = 40 m."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+
+    cam = PinholeCamera(**E2E_CAM, bf=E2E_CAM["fx"] * E2E_BASELINE_M)
+    return SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
+                      sensor=sensor, depth_threshold=40.0)
+
+
+def _centres(fds_gts):
+    est = np.array([-fd.R.T @ fd.t for fd, _ in fds_gts])
+    gt = np.array([-R.T @ t for _, (R, t) in fds_gts])
+    return est, gt
+
+
+def right_view(seq, i, baseline):
+    """The right camera's render of frame i of a WallSequence: the left
+    camera moved `baseline` metres along its own x axis."""
+    from orbslam_birdview_tpu_torch.utils.synth import render_wall_view
+
+    R_cw, t_cw = seq.gt_pose(i)
+    return render_wall_view(seq.cam, seq.tex, R_cw.astype(np.float64),
+                            t_cw.astype(np.float64)
+                            - np.array([baseline, 0.0, 0.0]), seq.wall_z)
+
+
+def e2e_rgbd_wall_sequence(dev):
+    """tests/test_e2e.py::test_rgbd_wall_sequence: depth makes the
+    trajectory metric, no scale alignment."""
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence, ate_rmse
+
+    cfg = e2e_depth_config("rgbd")
+    seq = WallSequence(cfg.camera, n_frames=25, step=0.03)
+    system = make_system(cfg, dev)
+    tracked = []
+    for i in range(25):
+        img, gt = seq.frame(i)
+        fd = system.track_rgbd(img, seq.depth(i), i / 30.0)
+        if fd.pose_ok:
+            tracked.append((fd, gt))
+    check(len(tracked) >= 20, f"rgbd: tracked only {len(tracked)} frames")
+    est, gt = _centres(tracked)
+    ate = ate_rmse(est, gt, with_scale=False)
+    check(ate < 0.03, f"rgbd: metric ATE {ate}")
+    return dict(tracked=len(est), ate_m=ate, keyframes=system.n_keyframes(),
+                map_points=system.n_map_points())
+
+
+def e2e_stereo_wall_sequence(dev):
+    """tests/test_e2e.py::test_stereo_wall_sequence: the right view
+    rendered at an 8 cm baseline; disparity depth with the subpixel
+    refinement must give a metric trajectory."""
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence, ate_rmse
+
+    cfg = e2e_depth_config("stereo")
+    seq = WallSequence(cfg.camera, n_frames=18, step=0.03)
+    system = make_system(cfg, dev)
+    tracked = []
+    for i in range(18):
+        img, gt = seq.frame(i)
+        fd = system.track_stereo(img, right_view(seq, i, E2E_BASELINE_M),
+                                 i / 30.0)
+        if fd.pose_ok:
+            tracked.append((fd, gt))
+    check(len(tracked) >= 14, f"stereo: tracked only {len(tracked)} frames")
+    est, gt = _centres(tracked)
+    ate = ate_rmse(est, gt, with_scale=False)
+    check(ate < 0.03, f"stereo: metric ATE {ate}")
+    return dict(tracked=len(est), ate_m=ate, keyframes=system.n_keyframes(),
+                map_points=system.n_map_points())
+
+
+def e2e_localization_mode_vo_fallback(dev):
+    """tests/test_e2e.py::test_localization_mode_vo_fallback: in
+    localization mode an RGB-D camera that leaves the mapped region keeps
+    tracking on temporal visual-odometry points; no keyframe is added."""
+    from orbslam_birdview_tpu_torch.pipeline import tracking
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence, ate_rmse
+
+    cfg = e2e_depth_config("rgbd")
+    n_map, n_total = 12, 30
+    seq = WallSequence(cfg.camera, n_frames=n_total, step=0.03)
+    system = make_system(cfg, dev)
+    for i in range(n_map):
+        system.track_rgbd(seq.frame(i)[0], seq.depth(i), i / 30.0)
+    check(system.get_tracking_state() == tracking.OK,
+          "vo: not tracking after the mapping frames")
+    n_kf = system.n_keyframes()
+    system.activate_localization_mode()
+    tracked = []
+    for i in range(n_map, n_total):
+        img, gt = seq.frame(i)
+        fd = system.track_rgbd(img, seq.depth(i), i / 30.0)
+        if fd.pose_ok:
+            tracked.append((fd, gt))
+    check(system.n_keyframes() == n_kf, "vo: localization mode added "
+          "keyframes")
+    check(len(tracked) >= (n_total - n_map) - 2,
+          f"vo: tracked only {len(tracked)}")
+    est, gt = _centres(tracked)
+    ate = ate_rmse(est, gt, with_scale=False)
+    vo_set = system.tracker.last_frame.kp_vo is not None
+    check(ate < 0.05, f"vo: metric ATE {ate}")
+    check(vo_set, "vo: the VO fallback never engaged")
+    return dict(tracked=len(est), of=n_total - n_map, ate_m=ate,
+                keyframes=n_kf, kp_vo_set=vo_set)
+
+
+def e2e_relocalization_after_lost(dev):
+    """tests/test_e2e.py::test_relocalization_after_lost: RGB-D with dense
+    keyframes, 3 featureless frames (LOST), then frame 5 again, which must
+    relocalize within 0.02 m of its first pass."""
+    from orbslam_birdview_tpu_torch.pipeline import tracking
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence
+
+    cfg = e2e_depth_config("rgbd")
+    cfg.tracking.max_frames_between_kf = 2
+    n = 30
+    seq = WallSequence(cfg.camera, n_frames=n, step=0.03)
+    system = make_system(cfg, dev)
+    first_pass = {}
+    for i in range(n):
+        fd = system.track_rgbd(seq.frame(i)[0], seq.depth(i), i / 30.0)
+        if fd.pose_ok:
+            first_pass[i] = (fd.R.copy(), fd.t.copy())
+    n_kf = system.n_keyframes()
+    check(n_kf > 5, f"rgbd reloc: only {n_kf} keyframes")
+    cam = cfg.camera
+    blank = np.zeros((cam.height, cam.width), np.float32)
+    far = np.full((cam.height, cam.width), 5.0, np.float32)
+    for j in range(3):
+        fd = system.track_rgbd(blank, far, (n + j) / 30.0)
+        check(not fd.pose_ok, "rgbd reloc: a blank frame tracked")
+    check(system.get_tracking_state() == tracking.LOST,
+          "rgbd reloc: not LOST after the blank frames")
+    fd = system.track_rgbd(seq.frame(5)[0], seq.depth(5), (n + 5) / 30.0)
+    check(fd.pose_ok, "rgbd reloc: relocalization failed")
+    check(system.tracker.last_reloc_frame_id == fd.frame_id,
+          "rgbd reloc: the pose did not come from relocalization")
+    R1, t1 = first_pass[5]
+    dist = float(np.linalg.norm(-fd.R.T @ fd.t + R1.T @ t1))
+    check(dist < RELOC_MAX_M, f"rgbd reloc: {dist} m from the first pass")
+    return dict(keyframes=n_kf, recovered=True, centre_diff_m=dist)
+
+
 def e2e_phase(dev):
-    """The four mono / mono+bird tests of tests/test_e2e.py, with loop
-    closing on as the reference's tests run them."""
+    """The mono / mono+bird tests of tests/test_e2e.py, then its four
+    stereo and RGB-D tests, with loop closing on as the reference's tests
+    run them; the patch-gather launches of each group."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
 
     patch_kernel.LAUNCHES = 0
@@ -1612,6 +1815,13 @@ def e2e_phase(dev):
         trajectory_savers=e2e_trajectory_savers(
             dev, ROOT / "chiprun_out" / "trajectories"))
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    patch_kernel.LAUNCHES = 0
+    rec.update(
+        rgbd_wall_sequence=e2e_rgbd_wall_sequence(dev),
+        stereo_wall_sequence=e2e_stereo_wall_sequence(dev),
+        localization_mode_vo_fallback=e2e_localization_mode_vo_fallback(dev),
+        relocalization_after_lost=e2e_relocalization_after_lost(dev))
+    rec["depth_patch_gather_launches"] = patch_kernel.LAUNCHES
     return rec
 
 
@@ -1667,6 +1877,205 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
                 kfdb_candidates=counters.get("reloc.kfdb_candidates", 0),
                 fallback_used=counters.get("reloc.fallback", 0),
                 patch_gather_launches=patch_kernel.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# depth: stereo and RGB-D through System at the reference's configurations
+# ---------------------------------------------------------------------------
+
+def depth_config(name):
+    """The KITTI stereo or the TUM1 RGB-D `SlamConfig`, from the repo's
+    configuration files."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+
+    if name == "stereo":
+        return SlamConfig.from_yaml(str(ROOT / "configs" /
+                                        "kitti00-02_stereo.yaml"),
+                                    sensor="stereo")
+    cfg = SlamConfig.from_yaml(str(ROOT / "configs" / "tum1_rgbd.yaml"),
+                               sensor="rgbd")
+    cfg.camera = cfg.camera._replace(k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    return cfg
+
+
+def render_depth_drive(name, cfg, n_frames, wall):
+    """The wall seen by the configuration's camera: frames of (left image,
+    right image or depth map, ground truth). Stereo images are 8-bit, as
+    KITTI's; the right camera sits bf/fx to the right. `coverage` is the
+    share of the last frame's pixels that see the wall's texture."""
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence
+
+    t0 = time.perf_counter()
+    seq = WallSequence(cfg.camera, n_frames=n_frames, **wall)
+    baseline = cfg.camera.bf / cfg.camera.fx
+    frames = []
+    for i in range(n_frames):
+        img, gt = seq.frame(i)
+        if name == "stereo":
+            right = right_view(seq, i, baseline)
+            frames.append((np.clip(img, 0, 255).astype(np.uint8),
+                           np.clip(right, 0, 255).astype(np.uint8), gt))
+        else:
+            frames.append((img, seq.depth(i), gt))
+    coverage = [float((f[0] > 0).mean()) for f in frames]
+    # the leading frames that see the whole textured wall: its share of
+    # the image grows as the camera closes in until the wall starts to
+    # leave the view
+    wall_in_view = next((i for i, c in enumerate(coverage)
+                         if c < coverage[0]), n_frames)
+    return seq, frames, dict(render_s=time.perf_counter() - t0,
+                             baseline_m=baseline,
+                             texture_coverage_first=coverage[0],
+                             texture_coverage_last=coverage[-1],
+                             texture_coverage_min=min(coverage),
+                             frames_wall_in_view=wall_in_view)
+
+
+def depth_drive(name, dev):
+    """One depth drive through `System` (loop closing on) after one
+    `prewarm`, then `_flush`; held to the depth bars and the exact
+    patch-gather count. Ground truth in the first keyframe's camera frame
+    (the map's world)."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    cfg = depth_config(name)
+    n_frames, wall = ((STEREO_FRAMES, STEREO_WALL) if name == "stereo"
+                      else (RGBD_FRAMES, RGBD_WALL))
+    seq, frames, render = render_depth_drive(name, cfg, n_frames, wall)
+    system = make_system(cfg, dev)
+    system.prewarm()
+    GLOBAL_TIMER.reset()
+    patch_kernel.LAUNCHES = 0
+    fds, call_ms = [], []
+    dt = 1.0 / cfg.fps
+    for i, (img, second, _) in enumerate(frames):
+        sync(dev)
+        t_call = time.perf_counter()
+        if name == "stereo":
+            fds.append(system.track_stereo(img, second, i * dt))
+        else:
+            fds.append(system.track_rgbd(img, second, i * dt))
+        sync(dev)
+        call_ms.append((time.perf_counter() - t_call) * 1e3)
+    system._flush()
+    launches = patch_kernel.LAUNCHES
+    store, mapper, tracker = system.store, system.mapper, system.tracker
+    counters = dict(tracker.timer.counters)
+    fused, slow = counters.get("track.fused", 0), counters.get("track.slow", 0)
+    per = (2, 3) if name == "stereo" else (1, 1)
+    want = (per[0] * fused + per[1] * slow) if dev.type == "cuda" else 0
+    check(fused + slow == n_frames, f"{name}: {fused} fused + {slow} slow "
+          f"frames of {n_frames}")
+    check(launches == want, f"{name}: patch kernel launched {launches} "
+          f"times, expected {want} ({fused} fused, {slow} slow frames)")
+    ok = [fd.pose_ok for fd in fds]
+    check(any(ok), f"{name}: the system never initialized")
+    first = ok.index(True)
+    ref_pose = seq.gt_pose(int(store.kf_frame_id[0]))
+    gts = [relative_pose(seq.gt_pose(i), ref_pose) for i in range(n_frames)]
+    err = trajectory_errors(fds[first:], gts[first:])
+    n_view = render["frames_wall_in_view"]
+    check(n_view - first >= 10, f"{name}: the wall leaves the view at "
+          f"frame {n_view}")
+    err_view = trajectory_errors(fds[first:n_view], gts[first:n_view])
+    cam = cfg.camera
+    return dict(
+        config=("configs/kitti00-02_stereo.yaml" if name == "stereo"
+                else "configs/tum1_rgbd.yaml (distortion zeroed)"),
+        image=f"{cam.width}x{cam.height}", features=cfg.orb.n_features,
+        levels=cfg.orb.n_levels, bf=cam.bf,
+        depth_threshold_m=cfg.depth_threshold, wall=wall, **render,
+        frames_fed=n_frames, init_frame=first, tracked=int(sum(ok)),
+        tracked_share=float(np.mean(ok)),
+        keyframes_minted=int(store.n_kf),
+        keyframe_frames=store.kf_frame_id[:store.n_kf].tolist(),
+        keyframes_alive=int(store.kf_valid.sum()),
+        map_points=int(store.mp_valid.sum()),
+        local_ba=dict(dispatched=mapper.stats["ba_dispatched"],
+                      landed=mapper.stats["ba_landed"],
+                      stereo_edges=mapper.stats["ba_stereo_edges"]),
+        fused_frames=fused, slow_path_frames=slow,
+        fallback_frames=counters.get("track.fallback", 0),
+        loops_closed=system.loop_closer.n_loops_closed, **err,
+        wall_in_view={k: err_view[k] for k in ("ate_m", "scale_ratio",
+                                               "max_pos_err_m",
+                                               "max_rot_err_deg")},
+        call_ms=dict(first_call=call_ms[0], all=wall_stats(call_ms[1:]),
+                     note="host clock around each track_* call with a "
+                          "device sync after it; frame 0 pays the "
+                          "initialization"),
+        patch_gather_launches=launches,
+        launches_per_frame=dict(fused=per[0], slow=per[1]),
+        floors=dict(init_frame=0, tracked_share=MIN_DEPTH_TRACKED_SHARE,
+                    ate_m_wall_in_view=MAX_DEPTH_ATE_M))
+
+
+def depth_phase_checks(rec):
+    for name in ("stereo", "rgbd"):
+        r = rec[name]
+        check(r["init_frame"] == 0, f"{name}: OK at frame {r['init_frame']}")
+        check(r["tracked_share"] >= MIN_DEPTH_TRACKED_SHARE,
+              f"{name}: tracked {r['tracked']} of {r['frames_fed']}")
+        check(r["wall_in_view"]["ate_m"] < MAX_DEPTH_ATE_M,
+              f"{name}: metric ATE {r['wall_in_view']['ate_m']} m over the "
+              f"{r['frames_wall_in_view']} frames that see the whole wall")
+
+
+def small_stereo_reference(dev):
+    """`stereo_match` and `refine_stereo_subpixel` on a 320×240 8-bit
+    stereo pair of the wall (16 cm baseline at 4 m), the same keypoints on
+    the CPU and on the GPU: the same match indices, uR within
+    SMALL_STEREO_UR_TOL."""
+    from orbslam_birdview_tpu_torch.core.camera import PinholeCamera
+    from orbslam_birdview_tpu_torch.frontend import orb, stereo
+    from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
+    from orbslam_birdview_tpu_torch.utils.synth import WallSequence
+
+    cam = PinholeCamera(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320,
+                        height=240, bf=40.0)
+    seq = WallSequence(cam, n_frames=2, step=0.03)
+    left = np.clip(np.round(seq.frame(1)[0]), 0, 255).astype(np.uint8)
+    right = np.clip(np.round(right_view(seq, 1, 0.16)), 0, 255).astype(
+        np.uint8)
+    cfg = ORBConfig(n_features=500)
+    kl = orb.extract_orb(left, cfg, device="cpu")
+    kr = orb.extract_orb(right, cfg, device="cpu")
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        l_, r_ = (torch.as_tensor(x, device=d).float() for x in (left, right))
+        kl_d = type(kl)(*(f.to(d) for f in kl))
+        kr_d = type(kr)(*(f.to(d) for f in kr))
+        idx, disp = stereo.stereo_match(kl_d, kr_d)
+        ridx, rdisp, ur = stereo.refine_stereo_subpixel(l_, r_, kl_d, kr_d,
+                                                        idx, disp)
+        out[d.type] = [x.cpu().numpy() for x in (idx, ridx, ur)]
+    c, g = out["cpu"], out[dev.type]
+    check(np.array_equal(c[0], g[0]) and np.array_equal(c[1], g[1]),
+          "small stereo: match indices differ between cpu and gpu")
+    ur_diff = float(np.abs(c[2] - g[2]).max())
+    check(ur_diff <= SMALL_STEREO_UR_TOL,
+          f"small stereo: uR differs by {ur_diff} px")
+    return dict(matches=int((c[0] >= 0).sum()),
+                refined_kept=int((c[1] >= 0).sum()), max_ur_diff_px=ur_diff)
+
+
+def depth_phase(dev):
+    """The two depth drives, the gather at the KITTI stereo frame's shapes,
+    and the CPU-against-GPU stereo check."""
+    rec = dict(stereo=depth_drive("stereo", dev), rgbd=depth_drive("rgbd",
+                                                                  dev))
+    if dev.type == "cuda":
+        cfg = depth_config("stereo")
+        seq, frames, _ = render_depth_drive("stereo", cfg, 2, STEREO_WALL)
+        left, right = frames[1][:2]
+        rec["gather_kitti_stereo"] = dict(
+            note="one fused stereo frame's 2 gathers (left and right, 8 "
+                 "levels each) at 1241x376, 2000 features",
+            **gather_measure([(left, cfg.orb, None),
+                              (right, cfg.orb, None)], dev))
+    rec["small_reference"] = small_stereo_reference(dev)
+    return rec
 
 
 def small_pnp_reference(dev):
@@ -1989,12 +2398,29 @@ def main() -> int:
     write_record()
     system_rec["relocalization"] = reloc_phase(drive, dev)
     write_record()
+    # stereo and RGB-D through System at the KITTI and TUM configurations
+    depth_rec = dict(card=card)
+    full["depth"] = depth_rec
+    try:
+        depth_rec.update(depth_phase(dev))
+    finally:
+        write_record()
+    depth_phase_checks(depth_rec)
+    kitti = depth_rec["gather_kitti_stereo"]
+    kernel["kitti_stereo"] = {k: kitti[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms", "bytes",
+        "max_abs_err", "note")}
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], kitti["max_abs_err"])
     by_phase.update(system=system_rec["drive"]["patch_gather_launches"],
                     loop=loop_rec["circle"]["patch_gather_launches"],
                     e2e_bird=system_rec["e2e"]["patch_gather_launches"],
                     e2e_loop=loop_rec["e2e_circle"]["patch_gather_launches"],
                     relocalization=system_rec["relocalization"][
-                        "patch_gather_launches"])
+                        "patch_gather_launches"],
+                    depth_stereo=depth_rec["stereo"]["patch_gather_launches"],
+                    depth_rgbd=depth_rec["rgbd"]["patch_gather_launches"],
+                    e2e_depth=system_rec["e2e"][
+                        "depth_patch_gather_launches"])
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
@@ -2013,12 +2439,13 @@ def main() -> int:
     kernels_line = {"kernels": [{k: kernel[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "host_bound_ms", "launches_by_phase")}]}
+        "host_bound_ms", "launches_by_phase", "kitti_stereo")}]}
     print(json.dumps(kernels_line))
     print(json.dumps({"slice": slice_rec}))
     print(json.dumps({"init": init_rec}))
     print(json.dumps({"system": system_rec}))
     print(json.dumps({"loop": {k: v for k, v in loop_rec.items()}}))
+    print(json.dumps({"depth": depth_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

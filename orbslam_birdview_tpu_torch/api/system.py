@@ -6,8 +6,9 @@ tracker drives local mapping, and local mapping drives loop closing, at
 fixed frame ticks.
 
 Loop closing is on by default, with the packaged vocabulary
-(`cfg.vocab_path = "auto"`). The stereo and RGB-D entry points raise
-until slice 4.
+(`cfg.vocab_path = "auto"`). `track_stereo` takes the right image, which
+the tracker row-matches against the left one; `track_rgbd` takes a depth
+image in metres (<= 0 where there is none).
 """
 from __future__ import annotations
 

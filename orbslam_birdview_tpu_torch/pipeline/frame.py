@@ -18,7 +18,8 @@ class FrameData:
     R: np.ndarray                    # Tcw rotation (3,3)
     t: np.ndarray                    # Tcw translation (3,)
     kp_mp: np.ndarray                # (K,) int64 map-point id per keypoint or -1
-    # stereo / RGB-D
+    # stereo / RGB-D: numpy, or device tensors on a fused frame until they
+    # ride home with its keyframe batch
     kp_depth: Optional[np.ndarray] = None   # (K,) depth or -1
     kp_ur: Optional[np.ndarray] = None      # (K,) right-image u or -1
     # birdview stream

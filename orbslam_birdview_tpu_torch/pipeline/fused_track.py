@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import resolve_device
-from ..frontend import matcher, orb
+from ..frontend import matcher, orb, stereo
 from ..frontend.keypoints import Keypoints, unpack_bits_to_pm1
 from ..graph import pose_opt
 from . import device_ops
@@ -67,6 +67,8 @@ class FusedOutput(NamedTuple):
     bird_kp: Optional[Keypoints] = None
     bird_base_xyz: Optional[torch.Tensor] = None  # (Kb,3) base-frame points
     bird_slot: Optional[torch.Tensor] = None      # (Kb,) int32 bird slot
+    kp_depth: Optional[torch.Tensor] = None       # (K,) f32 depth or -1
+    kp_ur: Optional[torch.Tensor] = None          # (K,) f32 right u or -1
 
     # summary layout (f32):
     # [0:9] R row-major, [9:12] t, [12] n_inliers_front, [13] n_matched,
@@ -107,6 +109,12 @@ def _slots(final, idx, K: int):
     return slot[:K]
 
 
+def _over(num: float, x):
+    """num / x as one f32 division (`num / x` on a tensor multiplies by
+    the reciprocal, which rounds differently)."""
+    return torch.full_like(x, num) / x
+
+
 def _device_tensors(dev, *xs):
     return [None if x is None else torch.as_tensor(x, device=dev) for x in xs]
 
@@ -137,20 +145,21 @@ def track_step_mono(
     R_bc=None, t_bc=None,    # (3,3),(3,) camera->base extrinsics
     bird_radius: float = 15.0,   # BEV search window (px)
     bird_info: float = 400.0,    # info weight per bird edge (1/sigma_m^2)
-    # ---- depth modes (ported with slice 4) ------------------------------
-    depth_map=None,
-    img_right=None,
-    bf: float = 0.0,
+    # ---- depth modes ---------------------------------------------------
+    depth_map=None,    # (H,W) RGB-D depth in metres (<= 0 invalid)
+    img_right=None,    # (H,W) right stereo image
+    bf: float = 0.0,   # stereo baseline·fx
     device=None,
 ) -> FusedOutput:
     """One fused tracking step on `device` (`cuda` unless given). When
     (R_last, t_last) are given, the step also emits the motion-model
     prediction for the NEXT frame (vel·T_cur with vel = T_cur·T_last⁻¹), so
-    consecutive frames chain on the device with no host round trip."""
-    if depth_map is not None or img_right is not None:
-        raise NotImplementedError(
-            "the RGB-D and stereo branches of track_step_mono are ported with "
-            "slice 4 (the depth modes); this port runs mono and mono+bird")
+    consecutive frames chain on the device with no host round trip.
+
+    With `depth_map` the keypoints' depth is sampled from it at the rounded
+    keypoint (round half to even); with `img_right` the right image is
+    extracted in the step and row-matched against the tracking keypoints.
+    Either way `kp_depth` / `kp_ur` stay on the device."""
     dev = resolve_device(device)
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
     (R_pred, t_pred, scale_factors, inv_sigma2, R_last, t_last, vis_acc,
@@ -160,6 +169,31 @@ def track_step_mono(
     lm = LocalMapDevice(*_device_tensors(dev, *lm))
 
     kp = orb.extract_orb(img, cfg, device=dev)
+    depth_out = {}
+    if depth_map is not None:
+        # RGB-D: nearest-sample the depth image at the keypoints
+        # (`Frame::ComputeStereoFromRGBD`)
+        dm = torch.as_tensor(depth_map, device=dev).to(torch.float32)
+        H_, W_ = dm.shape
+        xi = torch.round(kp.xy[:, 0]).long().clamp(0, W_ - 1)
+        yi = torch.round(kp.xy[:, 1]).long().clamp(0, H_ - 1)
+        d = dm[yi, xi]
+        d = torch.where((d > 0) & kp.valid, d, -1.0)
+        ur = torch.where(d > 0, kp.xy[:, 0] - _over(bf, d.clamp(min=1e-9)),
+                         -1.0)
+        depth_out = dict(kp_depth=d, kp_ur=ur)
+    elif img_right is not None:
+        # stereo: extract the right image in the step and match the
+        # tracking keypoints against it (`Frame::ComputeStereoMatches`);
+        # an 8-bit image is uploaded as it is and widened on the device
+        img_right = torch.as_tensor(img_right, device=dev).to(torch.float32)
+        kr = orb.extract_orb(img_right, cfg, device=dev)
+        sidx, sdisp = stereo.stereo_match(kp, kr)
+        sidx, sdisp, s_ur = stereo.refine_stereo_subpixel(
+            img, img_right, kp, kr, sidx, sdisp)
+        d = torch.where(sdisp > 0, _over(bf, sdisp.clamp(min=1e-6)), -1.0)
+        depth_out = dict(kp_depth=d,
+                         kp_ur=torch.where(sdisp > 0, s_ur, -1.0))
     P = lm.capacity
     K = kp.capacity
     n_levels = scale_factors.shape[0]
@@ -290,7 +324,7 @@ def track_step_mono(
     return FusedOutput(kp=kp, summary=summary, R=res2.R, t=res2.t,
                        R_pred_next=R_np, t_pred_next=t_np,
                        kp_slot=kp_slot, vis_acc=vis_acc,
-                       found_acc=found_acc, **bird_out)
+                       found_acc=found_acc, **bird_out, **depth_out)
 
 
 def unpack_summary(summary_np):

@@ -99,8 +99,10 @@ class LocalMapper:
         self.stats = dict(tri_applied=0, fuse_applied=0, ba_dispatched=0,
                           ba_landed=0, ba_dropped=0, kf_culled=0,
                           points_culled=0, gba_dispatched=0, gba_landed=0,
-                          gba_dropped=0)
+                          gba_dropped=0, ba_stereo_edges=0)
+        # the valid edges of each type in the last BA problem gathered, and
         # the last full-map BA's problem: C, P, edges, solver
+        self.last_ba_edges: dict = {}
         self.last_gba: dict = {}
         # device-resident per-keyframe keypoint arrays (xy, octave, valid,
         # desc_u8), registered at mint time from the fused frame's own
@@ -724,17 +726,19 @@ class LocalMapper:
             aux_s, aux_b = stereo_cap or cap // 4, bird_cap or cap // 4
             mono_es, n_mono = mk_edges(e_cam, e_pt, e_obs, e_info, 2, cap,
                                        B_m)
-            stereo_es, _ = mk_edges(s_cam, s_pt, s_obs, s_info, 3,
-                                    aux_s, min(aux_pad, aux_s))
-            bird_es, _ = mk_edges(b_cam, b_pt, b_obs, b_info, 3,
-                                  aux_b, min(aux_pad, aux_b))
+            stereo_es, n_stereo = mk_edges(s_cam, s_pt, s_obs, s_info, 3,
+                                           aux_s, min(aux_pad, aux_s))
+            bird_es, n_bird = mk_edges(b_cam, b_pt, b_obs, b_info, 3,
+                                       aux_b, min(aux_pad, aux_b))
         else:
             mono_es, n_mono = mk_edges(e_cam, e_pt, e_obs, e_info, 2, cap,
                                        B_m)
-            stereo_es, _ = mk_edges(s_cam, s_pt, s_obs, s_info, 3,
-                                    aux_pad, aux_pad)
-            bird_es, _ = mk_edges(b_cam, b_pt, b_obs, b_info, 3,
-                                  aux_pad, aux_pad)
+            stereo_es, n_stereo = mk_edges(s_cam, s_pt, s_obs, s_info, 3,
+                                           aux_pad, aux_pad)
+            bird_es, n_bird = mk_edges(b_cam, b_pt, b_obs, b_info, 3,
+                                       aux_pad, aux_pad)
+        # the valid edges of each type, counted on the host
+        self.last_ba_edges = dict(mono=n_mono, stereo=n_stereo, bird=n_bird)
         # empty stereo/bird sets stay as all-invalid masked EdgeSets (NOT
         # None), so the BA always runs all three edge branches
         camR_np = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
@@ -824,6 +828,7 @@ class LocalMapper:
         if self._ba_pending is not None:
             self.stats["ba_dropped"] += 1
         self.stats["ba_dispatched"] += 1
+        self.stats["ba_stereo_edges"] += self.last_ba_edges["stereo"]
         self._ba_pending = dict(
             res=res, window=window, all_kfs=all_kfs, mono_es=mono_es,
             mp_ids=mp_ids, bmp_ids=bmp_ids, n_mp=n_mp, n_bmp=n_bmp,

@@ -118,12 +118,14 @@ def keypoints_from_numpy(fields: Mapping, device=None) -> Keypoints:
 def frame_from_numpy(frame_id: int, timestamp: float, kp: Mapping,
                      bird_kp: Optional[Mapping] = None, bird_base_xyz=None,
                      device=None, kp_mp=None, bird_mp=None, R=None, t=None,
-                     pose_ok: bool = False) -> FrameData:
+                     pose_ok: bool = False, kp_depth=None,
+                     kp_ur=None) -> FrameData:
     """A `FrameData` from the JAX package's frame: its keypoints as numpy,
-    in bird mode its BEV keypoints and their base-frame points, and, for a
-    frame met mid-run, its associations (kp_mp, bird_mp), pose and
-    pose_ok. Without them the frame is fresh: identity pose, no
-    associations, not tracked."""
+    in bird mode its BEV keypoints and their base-frame points, with a
+    depth sensor its keypoints' depth and right-image u, and, for a frame
+    met mid-run, its associations (kp_mp, bird_mp), pose and pose_ok.
+    Without them the frame is fresh: identity pose, no associations, not
+    tracked."""
     dev = resolve_device(device)
     kpt = keypoints_from_numpy(kp, dev)
     fd = FrameData(frame_id=frame_id, timestamp=timestamp, kp=kpt,
@@ -134,6 +136,9 @@ def frame_from_numpy(frame_id: int, timestamp: float, kp: Mapping,
                    kp_mp=np.full(kpt.capacity, -1, np.int64) if kp_mp is None
                    else np.array(kp_mp, np.int64))
     fd.pose_ok = pose_ok
+    if kp_depth is not None:
+        fd.kp_depth = np.array(kp_depth, np.float32)
+        fd.kp_ur = np.array(kp_ur, np.float32)
     if bird_kp is not None:
         fd.bird_kp = keypoints_from_numpy(bird_kp, dev)
         fd.bird_base_xyz = np.array(bird_base_xyz, np.float32)

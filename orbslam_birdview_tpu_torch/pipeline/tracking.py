@@ -26,8 +26,15 @@ Every overlapped result lands at a FIXED frame offset from its dispatch
 (`KF_MINT_LAG`, `ACC_LAG`, `fused_max_lag`, `summary_batch`, the mapper's
 stage and BA lags), waiting for its transfer if need be, never as soon as
 it happens to be ready: the map and the trajectory are a function of the
-frame index alone. The stereo and RGB-D branches are ported with slice 4
-(the depth modes) and raise until then.
+frame index alone.
+
+Stereo and RGB-D frames carry a per-keypoint depth and right-image u
+(`kp_depth`, `kp_ur`): on the fused path they are computed in the step and
+stay on the device until a keyframe's batched fetch; on the slow path they
+are sampled on the host from the depth image, or from the depth map that
+`frontend.stereo.stereo_depth_for_frame` splats from the right image. Such
+a sensor initializes from one frame (`_initialize_with_depth`) and every
+keyframe seeds close points from depth (`_seed_depth_points`).
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ import torch
 from .. import resolve_device
 from ..api.config import SlamConfig
 from ..core.camera import camera_to_base_extrinsics
-from ..frontend import keypoints, matcher, orb
+from ..frontend import keypoints, matcher, orb, stereo
 from ..frontend.keypoints import Keypoints, unpack_bits_to_pm1
 from ..graph import pose_opt
 from ..mapping.mapstore import INVALID, MapStore
@@ -55,9 +62,6 @@ from .frame import FrameData
 NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
-
-_DEPTH_MODES = ("stereo and RGB-D tracking are ported with slice 4 (the "
-                "depth modes); this port runs mono and mono+bird")
 
 
 class _SummaryBlock:
@@ -208,8 +212,6 @@ class Tracker:
     # ------------------------------------------------------------------
     def make_frame(self, img, timestamp, bird_img=None, bird_mask=None,
                    depth_img=None) -> FrameData:
-        if depth_img is not None:
-            raise NotImplementedError(_DEPTH_MODES)
         dev = self.device
         kp = orb.extract_orb(img, self.cfg.orb, device=dev)
         cam = self.cfg.camera
@@ -226,6 +228,21 @@ class Tracker:
             t=np.zeros(3, np.float32),
             kp_mp=np.full(K, INVALID, np.int64),
         )
+        if depth_img is not None:
+            # nearest sample at the keypoint, truncated to whole pixels
+            # (`Frame::ComputeStereoFromRGBD`)
+            kph = self._kp_host(fd)
+            xy = kph.xy
+            xi = np.clip(xy[:, 0].astype(int), 0, depth_img.shape[1] - 1)
+            yi = np.clip(xy[:, 1].astype(int), 0, depth_img.shape[0] - 1)
+            d = depth_img[yi, xi].astype(np.float32)
+            d[~kph.valid] = -1.0
+            d[d <= 0] = -1.0
+            fd.kp_depth = d
+            with np.errstate(divide="ignore"):
+                ur = np.where(d > 0, xy[:, 0] - cam.bf / np.maximum(d, 1e-9),
+                              -1.0)
+            fd.kp_ur = ur.astype(np.float32)
         if bird_img is not None:
             bcfg = self.cfg.effective_bird_orb()
             bkp = orb.extract_orb(bird_img, bcfg, mask=bird_mask, device=dev)
@@ -250,8 +267,6 @@ class Tracker:
     # ------------------------------------------------------------------
     def process(self, img, timestamp, bird_img=None, bird_mask=None,
                 depth_img=None, right_img=None) -> FrameData:
-        if depth_img is not None or right_img is not None:
-            raise NotImplementedError(_DEPTH_MODES)
         with self.timer.stage("proc.landed_acc"):
             self._apply_landed_acc(block=self.cfg.tracking.synchronous)
         if (self._kf_pending is not None
@@ -268,8 +283,11 @@ class Tracker:
                 # predates it. Local-BA landings keep the chain.
                 self._chain = None
         sensor = self.cfg.sensor
-        mode_ok = ((bird_img is None and sensor == "mono")
-                   or (bird_img is not None and sensor == "mono_bird"))
+        mode_ok = ((bird_img is None and depth_img is None
+                    and right_img is None and sensor == "mono")
+                   or (bird_img is not None and sensor == "mono_bird")
+                   or (depth_img is not None and sensor == "rgbd")
+                   or (right_img is not None and sensor == "stereo"))
         fused_ok = (self.cfg.tracking.fused_tracking and self.state == OK
                     and self.velocity is not None and not self.only_tracking
                     and mode_ok)
@@ -282,10 +300,19 @@ class Tracker:
             if self._lm_bundle is not None and (
                     bird_img is None or self._bird_bundle is not None):
                 return self._process_fused(img, timestamp, bird_img=bird_img,
-                                           bird_mask=bird_mask)
+                                           bird_mask=bird_mask,
+                                           depth_img=depth_img,
+                                           right_img=right_img)
         self.flush()
         self.timer.count("track.slow")
-        fd = self.make_frame(img, timestamp, bird_img, bird_mask)
+        if right_img is not None and depth_img is None:
+            # the slow path's stereo: a splatted depth map, sampled at the
+            # frame's keypoints (fused frames match the right image in the
+            # step)
+            with self.timer.stage("slow.stereo_depth"):
+                depth_img = stereo.stereo_depth_for_frame(
+                    img, right_img, self.cfg, device=self.device)
+        fd = self.make_frame(img, timestamp, bird_img, bird_mask, depth_img)
         if self.state == NOT_INITIALIZED:
             self._try_initialize(fd)
         else:
@@ -441,7 +468,8 @@ class Tracker:
     # fused one-call tracking (pipeline/fused_track.py)
     # ------------------------------------------------------------------
     def _process_fused(self, img, timestamp, bird_img=None,
-                       bird_mask=None) -> FrameData:
+                       bird_mask=None, depth_img=None,
+                       right_img=None) -> FrameData:
         """Lag-N pipelined fused tracking: dispatch frame t on the device
         pose chain, then retire in-flight frames once more than
         `fused_max_lag` are in flight. A frame's summary rides home in a
@@ -490,6 +518,13 @@ class Tracker:
                 bird_info=float(cfgt.bird_info_scale_pose
                                 / cfgt.bird_sigma_m ** 2),
             )
+        depth_kw = {}
+        if depth_img is not None:
+            depth_kw = dict(depth_map=depth_img, bf=float(cam.bf))
+        elif right_img is not None:
+            if right_img.dtype != np.uint8:
+                right_img = np.asarray(right_img, np.float32)
+            depth_kw = dict(img_right=right_img, bf=float(cam.bf))
         self.timer.count("track.fused")
         with self.timer.stage("fused.dispatch"):
             out = fused_track.track_step_mono(
@@ -501,7 +536,7 @@ class Tracker:
                 radius_mult_local=cfgt.local_search_radius / 2.5,
                 R_last=R_last, t_last=t_last,
                 vis_acc=self._acc[0], found_acc=self._acc[1], device=dev,
-                **bird_kw,
+                **bird_kw, **depth_kw,
             )
         self._acc = (out.vis_acc, out.found_acc)
         # the frame's summary rides home in a BATCHED block fetch: exactly
@@ -531,6 +566,11 @@ class Tracker:
             fd.bird_mp = np.full(out.bird_kp.capacity, INVALID, np.int64)
             fd._bird_slot_dev = out.bird_slot
             fd._bird_ids_snapshot = (self._bird_ids, self._bird_n)
+        if out.kp_depth is not None:
+            # device-resident per-keypoint depth; it rides home with the
+            # keyframe batch if this frame is minted
+            fd.kp_depth = out.kp_depth
+            fd.kp_ur = out.kp_ur
         fd._finalize_cb = self._flush_through(fd)
         self.frame_id += 1
         snapshot = (self._lm_ids, self._lm_n, self._lm_bundle.capacity,
@@ -680,6 +720,8 @@ class Tracker:
             b = fd.bird_kp
             items += [b.xy, b.response, b.angle, b.octave, b.valid,
                       b.desc_u8, fd.bird_base_xyz, fd._bird_slot_dev]
+        if isinstance(fd.kp_depth, torch.Tensor):
+            items += [fd.kp_depth, fd.kp_ur]
         return tuple(items)
 
     def _kf_apply_fetched(self, fd, landed):
@@ -689,6 +731,10 @@ class Tracker:
         store = self.store
         fd._kp_dev_arrays = (fd.kp.xy, fd.kp.octave, fd.kp.valid,
                              fd.kp.desc_u8)
+        landed = list(landed)
+        if isinstance(fd.kp_depth, torch.Tensor):
+            fd.kp_ur = landed.pop()
+            fd.kp_depth = landed.pop()
         xy, resp, ang, octv, val, u8, slot = landed[:7]
         lm_ids, lm_n = fd._lm_ids_snapshot
         P = len(lm_ids)
@@ -903,7 +949,31 @@ class Tracker:
             fd.t = store.kf_t[kf2].copy()
 
     def _initialize_with_depth(self, fd: FrameData):
-        raise NotImplementedError(_DEPTH_MODES)
+        """Stereo / RGB-D initialization (`Tracking::StereoInitialization`):
+        the first frame with >= 500 depth-valid keypoints becomes a keyframe
+        at the identity, its landmarks unprojected from depth."""
+        if fd.kp_depth is None or (fd.kp_depth > 0).sum() < 500:
+            return
+        store = self.store
+        kph = self._kp_host(fd)
+        kf = store.alloc_keyframe(fd.R, fd.t, fd.frame_id, fd.timestamp, kph,
+                                  kp_depth=fd.kp_depth, kp_ur=fd.kp_ur)
+        cam = self.cfg.camera
+        ki = np.nonzero((fd.kp_depth > 0) & kph.valid)[0]
+        z = fd.kp_depth[ki]
+        X = np.stack([(kph.xy[ki, 0] - cam.cx) / cam.fx * z,
+                      (kph.xy[ki, 1] - cam.cy) / cam.fy * z, z], 1)
+        ids = store.alloc_points(X.astype(np.float32), kph.desc_u8[ki], kf,
+                                 fd.frame_id)
+        store.add_observations(kf, ki, ids)
+        store.update_covisibility(kf)
+        store.update_point_stats(ids, self.scale_factors)
+        fd.kp_mp[ki] = ids
+        fd.pose_ok = True
+        self.ref_kf = kf
+        self.last_kf_frame_id = fd.frame_id
+        self.state = OK
+        self.velocity = None
 
     # ------------------------------------------------------------------
     # per-frame tracking, the slow path
@@ -1025,6 +1095,7 @@ class Tracker:
         if (not self.only_tracking or last.kp_depth is None
                 or last.frame_id == self.last_kf_frame_id):
             return
+        self._land_depth(last)
         # create VO points: all close ones (depth < threshold); if fewer
         # than 100 close, the 100 closest
         if last.kp_vo is None:
@@ -1436,6 +1507,7 @@ class Tracker:
                 self._kp_host(fd)
                 if fd.bird_kp is not None:
                     fd.bird_kp_host = keypoints.to_host(fd.bird_kp)
+        self._land_depth(fd)
         if fd.bird_kp is not None:
             fd.bird_base_xyz = to_numpy(fd.bird_base_xyz)
         if fd._mint_bird and fd.bird_kp is not None:
@@ -1509,7 +1581,32 @@ class Tracker:
         fd.bird_mp[ki] = bids
 
     def _seed_depth_points(self, fd: FrameData, kf: int):
-        raise NotImplementedError(_DEPTH_MODES)
+        """`Tracking::CreateNewKeyFrame`'s stereo branch: unproject the
+        close (depth < `depth_threshold`), depth-valid, landmark-free
+        keypoints as new map points."""
+        store = self.store
+        cam = self.cfg.camera
+        kph = fd.kp_host
+        free = (fd.kp_mp < 0) & (fd.kp_depth > 0) & kph.valid
+        ki = np.nonzero(free & (fd.kp_depth < self.cfg.depth_threshold))[0]
+        if len(ki) == 0:
+            return
+        xy = kph.xy[ki]
+        z = fd.kp_depth[ki]
+        Xc = np.stack([(xy[:, 0] - cam.cx) / cam.fx * z,
+                       (xy[:, 1] - cam.cy) / cam.fy * z, z], 1)
+        Xw = (Xc - fd.t) @ fd.R  # R^T (Xc − t)
+        ids = store.alloc_points(Xw.astype(np.float32), kph.desc_u8[ki], kf,
+                                 fd.frame_id)
+        store.add_observations(kf, ki, ids)
+        fd.kp_mp[ki] = ids
+
+    def _land_depth(self, fd: FrameData):
+        """A fused frame's device kp_depth / kp_ur as numpy, in one
+        transfer, for the frames whose keyframe batch did not carry them
+        (a fallback keyframe, the last frame in localization mode)."""
+        if isinstance(fd.kp_depth, torch.Tensor):
+            fd.kp_depth, fd.kp_ur = fetch((fd.kp_depth, fd.kp_ur))
 
     # ------------------------------------------------------------------
     def _update_velocity(self, fd: FrameData):

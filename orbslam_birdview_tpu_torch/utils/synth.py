@@ -2,9 +2,9 @@
 
 The part of the JAX package's `utils/synth.py` that the port's tests and
 smoke run need — the textured wall seen by a moving camera
-(`WallSequence`), the textured box room seen by the front camera, the
-textured ground seen by the BEV camera (`BirdSequence`), and the ATE
-metric — without OpenCV: the 3×3 Gaussian is scipy's, and cv2.remap /
+(`WallSequence`, with the wall's exact depth for RGB-D), the textured box
+room seen by the front camera, the textured ground seen by the BEV camera
+(`BirdSequence`), and the ATE metric — without OpenCV: the 3×3 Gaussian is scipy's, and cv2.remap /
 cv2.warpPerspective become bilinear sampling written out here (the wall
 through the inverse of its homography). The images are close to, not
 bit-equal with, the OpenCV ones; parity tests hand one numpy image to both
@@ -122,6 +122,20 @@ class WallSequence:
         R_cw, t_cw = self.gt_pose(i)
         img = render_wall_view(self.cam, self.tex, R_cw, t_cw, self.wall_z)
         return img, (R_cw, t_cw)
+
+    def depth(self, i: int) -> np.ndarray:
+        """Exact per-pixel depth (camera z, metres) of the wall plane."""
+        R_cw, t_cw = self.gt_pose(i)
+        R_wc = R_cw.T
+        p = -R_wc @ t_cw
+        cam = self.cam
+        us, vs = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                             np.arange(cam.height, dtype=np.float64))
+        xn = (us - cam.cx) / cam.fx
+        yn = (vs - cam.cy) / cam.fy
+        dw_z = R_wc[2, 0] * xn + R_wc[2, 1] * yn + R_wc[2, 2]
+        depth = (self.wall_z - p[2]) / np.maximum(dw_z, 1e-9)
+        return depth.astype(np.float32)
 
 
 def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,

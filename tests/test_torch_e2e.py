@@ -1,10 +1,10 @@
-"""The mono and mono+bird tests of `tests/test_e2e.py`, the circular loop
-closure of `tests/test_loop_closing.py` and the two budget tests of
-`tests/test_reference_budget.py` on the port, on the CPU, with their own
-configurations and bars, on the port's own renders and with loop closing
-on, as the reference's tests run. The e2e and circle functions run on the
-card in `chip_smoke.py`'s e2e phase. Marked slow, as the reference's tests
-are.
+"""The mono, mono+bird, stereo and RGB-D tests of `tests/test_e2e.py`, the
+circular loop closure of `tests/test_loop_closing.py` and the two budget
+tests of `tests/test_reference_budget.py` on the port, on the CPU, with
+their own configurations and bars, on the port's own renders and with loop
+closing on, as the reference's tests run. The e2e and circle functions run
+on the card in `chip_smoke.py`'s e2e phase. Marked slow, as the
+reference's tests are.
 """
 import sys
 from pathlib import Path
@@ -40,6 +40,31 @@ def test_reset_and_localization_mode():
 @pytest.mark.slow
 def test_trajectory_savers(tmp_path):
     assert smoke.e2e_trajectory_savers(CPU, tmp_path)["tum_lines"] >= 10
+
+
+@pytest.mark.slow
+def test_rgbd_wall_sequence():
+    rec = smoke.e2e_rgbd_wall_sequence(CPU)
+    assert rec["tracked"] >= 20 and rec["ate_m"] < 0.03
+
+
+@pytest.mark.slow
+def test_stereo_wall_sequence():
+    rec = smoke.e2e_stereo_wall_sequence(CPU)
+    assert rec["tracked"] >= 14 and rec["ate_m"] < 0.03
+
+
+@pytest.mark.slow
+def test_localization_mode_vo_fallback():
+    rec = smoke.e2e_localization_mode_vo_fallback(CPU)
+    assert rec["tracked"] >= rec["of"] - 2 and rec["ate_m"] < 0.05
+    assert rec["kp_vo_set"]
+
+
+@pytest.mark.slow
+def test_relocalization_after_lost():
+    rec = smoke.e2e_relocalization_after_lost(CPU)
+    assert rec["recovered"] and rec["centre_diff_m"] < 0.02
 
 
 @pytest.mark.slow

@@ -11,6 +11,9 @@ other way at these shapes (see test_torch_orb.py), which can reorder two
 near-equal keypoints or move one, and the LM sums in another order. So
 poses agree to 2e-3 (rotation entries, translation in m), counts to ±2,
 and the per-keypoint / per-candidate vectors on all but 2% of entries.
+The depth branches (a depth map; a right image extracted and matched in
+the step) also give each keypoint's depth and right-image u: within 1e-4
+relative on all but 2% of the keypoints.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,7 @@ CAM = PinholeCamera(fx=348.5 * W / 950, fy=347.0 * W / 950,
                     cx=480.0 * W / 950, cy=302.0 * W / 950, width=W, height=H)
 P, PB = 512, 384
 POSE_TOL, COUNT_TOL, VEC_BUDGET = 2e-3, 2, 0.02
+DEPTH_RTOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -143,12 +147,51 @@ def test_fused_chain_three_frames(setup):
         tp = (tout.R_pred_next, tout.t_pred_next)
 
 
+def _depth_inputs(seq, i, baseline):
+    """Frame i's exact depth map (the box room ray-cast under the ground
+    truth; camera z, since the rays have unit z) and the right view of a
+    camera `baseline` metres to the right."""
+    R_cw, t_cw = (np.asarray(a, np.float64) for a in seq.gt_cam_pose(i))
+    us, vs = np.meshgrid(np.arange(W, dtype=np.float64),
+                         np.arange(H, dtype=np.float64))
+    t, _ = synth.cast_box_rays(-R_cw.T @ t_cw,
+                               synth._camera_rays(CAM, R_cw, us, vs),
+                               seq.wall_x)
+    depth = np.where(np.isfinite(t), t, 0.0).astype(np.float32)
+    right = synth.render_box_view(CAM, seq.wall, R_cw,
+                                  t_cw - np.array([baseline, 0.0, 0.0]),
+                                  box_half=seq.wall_x)
+    return depth, right
+
+
 def test_depth_modes_wait_for_slice_4(setup):
+    """The step's RGB-D and stereo branches (the depth modes) against the
+    JAX package's: the pose as in the mono step; per-keypoint depth and
+    right-image u within DEPTH_RTOL on all but VEC_BUDGET of the keypoints
+    (the extractors' rounding can move a keypoint onto another depth
+    pixel or another stereo match)."""
     seq, frames, mask, ref, st = setup
-    img = frames[1][0]
-    eye, zero = torch.eye(3), torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tft.track_step_mono(img, eye, zero, st.lm, st.scale_factors,
-                            st.inv_sigma2, st.cfg, CAM.fx, CAM.fy, CAM.cx,
-                            CAM.cy, W, H, depth_map=np.ones_like(img),
-                            device="cpu")
+    img, _, (R_gt, t_gt) = frames[1]
+    R0, t0 = frames[0][2]
+    bf = CAM.fx * 0.5
+    depth, right = _depth_inputs(seq, 1, 0.5)
+    t = lambda x: torch.as_tensor(np.asarray(x))
+    for kw in (dict(depth_map=depth), dict(img_right=right)):
+        jout = jft.track_step_mono(
+            jnp.asarray(img), jnp.asarray(R0), jnp.asarray(t0), ref["lm"],
+            ref["sf"], ref["isig"], ref["cfg"], CAM.fx, CAM.fy, CAM.cx,
+            CAM.cy, W, H, R_last=jnp.asarray(R0), t_last=jnp.asarray(t0),
+            bf=bf, **{k: jnp.asarray(v) for k, v in kw.items()})
+        tout = tft.track_step_mono(
+            img, t(R0), t(t0), st.lm, st.scale_factors, st.inv_sigma2,
+            st.cfg, CAM.fx, CAM.fy, CAM.cx, CAM.cy, W, H, R_last=t(R0),
+            t_last=t(t0), bf=bf, device="cpu", **kw)
+        sr = _compare(jout, tout, False)
+        np.testing.assert_allclose(sr["t"], t_gt, atol=0.02)
+        for name in ("kp_depth", "kp_ur"):
+            a, b = getattr(tout, name).numpy(), np.asarray(getattr(jout,
+                                                                   name))
+            close = np.isclose(a, b, rtol=DEPTH_RTOL, atol=0)
+            assert (~close).mean() <= VEC_BUDGET, (name, (~close).mean())
+        d = np.asarray(jout.kp_depth)
+        assert (d > 0).sum() > (200 if "depth_map" in kw else 50)

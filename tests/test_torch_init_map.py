@@ -274,16 +274,24 @@ def test_gathered_ba_problem_agrees_and_carries_across(both):
 
 def test_port_from_raw_images_through_process(drive):
     """`Tracker.process` on the rendered frames, the port alone: it
-    initializes on the fourth frame with a metric baseline, and refuses
-    what is not ported instead of doing something else."""
+    initializes on the fourth frame with a metric baseline; a depth image
+    gives the keypoints depth, and an RGB-D tracker initializes on its
+    first frame with depth."""
     seq, frames, mask, quat = drive
     cfg = make_cfg(SlamConfig, CAM, ORBConfig, BV, seq, quat)
     store = MapStore(kp_cap=cfg.orb.padded_capacity(),
                      bird_cap=cfg.effective_bird_orb().padded_capacity())
     mapper = local_mapping.LocalMapper(cfg, store, device="cpu")
     tr = tracking.Tracker(cfg, store, mapper, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tr.make_frame(frames[0][0], 0.0, depth_img=np.ones((200, 475)))
+    probe = tracking.Tracker(cfg, MapStore(kp_cap=store.kp_cap,
+                                           bird_cap=store.bird_cap),
+                             device="cpu")
+    fd = probe.make_frame(frames[0][0], 0.0,
+                          depth_img=np.full((200, 475), 2.0, np.float32))
+    valid = probe._kp_host(fd).valid
+    np.testing.assert_array_equal(fd.kp_depth, np.where(valid, 2.0, -1.0))
+    np.testing.assert_allclose(
+        fd.kp_ur, np.where(valid, fd.kp_host.xy[:, 0] - CAM.bf / 2.0, -1.0))
     states = []
     for i, (img, bev, _) in enumerate(frames):
         fd = tr.process(img, float(i), bev, mask)
@@ -314,8 +322,7 @@ def test_port_from_raw_images_through_process(drive):
     for name in ("init.match", "init.two_view", "init.map", "init.ba"):
         assert tr.timer.samples[name], name
     # the next frame is tracked from the map (the slow path: the velocity
-    # is not known yet); the full-map BA runs on it; what is not ported
-    # raises, naming where it waits
+    # is not known yet); the full-map BA runs on it
     fd = tr.process(frames[4][0], 4.0, frames[4][1], mask)
     assert tr.state == tracking.OK and fd.pose_ok and tr.velocity is not None
     R4, t4 = seq.gt_cam_pose(4)
@@ -335,8 +342,13 @@ def test_port_from_raw_images_through_process(drive):
     fresh = tracking.Tracker(cfg, MapStore(kp_cap=store.kp_cap,
                                            bird_cap=store.bird_cap),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        fresh.process(frames[0][0], 0.0)
+    fresh.process(frames[0][0], 0.0)            # no depth: no map
+    assert fresh.state == tracking.NOT_INITIALIZED and fresh.store.n_kf == 0
+    fd = fresh.process(frames[1][0], 1.0,
+                       depth_img=np.full((200, 475), 2.0, np.float32))
+    assert fresh.state == tracking.OK and fd.pose_ok
+    assert fresh.store.n_kf == 1 and fresh.ref_kf == 0
+    assert fresh.store.n_mp == int((fd.kp_depth > 0).sum()) >= 500
 
 
 def test_tracker_needs_a_device_or_cpu(drive):

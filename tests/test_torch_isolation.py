@@ -30,6 +30,7 @@ MODULES = [
     "orbslam_birdview_tpu_torch.frontend.patch_kernel",
     "orbslam_birdview_tpu_torch.frontend.orb",
     "orbslam_birdview_tpu_torch.frontend.matcher",
+    "orbslam_birdview_tpu_torch.frontend.stereo",
     "orbslam_birdview_tpu_torch.graph.residuals",
     "orbslam_birdview_tpu_torch.graph.pose_opt",
     "orbslam_birdview_tpu_torch.graph.ba",

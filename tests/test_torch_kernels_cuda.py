@@ -171,3 +171,23 @@ def test_small_system_on_the_card(cuda):
     assert rec["ate_m"] < 0.05 and abs(rec["scale_ratio"] - 1.0) < 0.02
     assert rec["compact_overflows"] == 0 and rec["final_state_ok"]
     assert system.tracker._K_dev.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_depth_modes_small_on_the_card(cuda):
+    """The stereo front end on the CPU and on the card (the same match
+    indices, uR within 1e-4 px), and the stereo e2e test's drive on the
+    card with its bars; the patch gather launches 2 or 3 times a frame."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as smoke
+
+    rec = smoke.small_stereo_reference(cuda)
+    assert rec["max_ur_diff_px"] <= 1e-4 and rec["matches"] > 150
+    before = tpk.LAUNCHES
+    rec = smoke.e2e_stereo_wall_sequence(cuda)
+    launches = tpk.LAUNCHES - before
+    assert rec["tracked"] >= 14 and rec["ate_m"] < 0.03
+    assert 2 * 18 <= launches <= 3 * 18

@@ -16,6 +16,8 @@ both metric ATEs (rigid alignment, no scale) under the e2e bar of 0.05 m
 and path lengths within 2 % of ground truth; a map saved by one package
 loads in the other.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -130,9 +132,18 @@ def test_what_is_not_ported_raises(runs):
     system = System(cfg, device="cpu")
     assert system.loop_closer.voc.n_words == 100000
     assert system.loop_closer.kfdb.registered == set()
-    system = System(cfg, enable_loop_closing=False, device="cpu")
+    # the depth modes are ported: an RGB-D and a stereo System initialize
+    # on their first frame, at the identity
     img = frames[0][0]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        system.track_rgbd(img, np.ones_like(img), 0.0)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        system.track_stereo(img, img, 0.0)
+    for sensor in ("rgbd", "stereo"):
+        dcfg = copy.deepcopy(cfg)
+        dcfg.sensor = sensor
+        dcfg.camera = dcfg.camera._replace(bf=dcfg.camera.fx * 0.5)
+        system = System(dcfg, enable_loop_closing=False, device="cpu")
+        if sensor == "rgbd":
+            fd = system.track_rgbd(img, np.full_like(img, 4.0), 0.0)
+        else:   # every point 4 px of disparity away
+            fd = system.track_stereo(img, np.roll(img, -4, axis=1), 0.0)
+        assert fd.pose_ok and system.n_keyframes() == 1, sensor
+        np.testing.assert_array_equal(fd.R, np.eye(3))
+        assert system.n_map_points() >= 500

@@ -1,7 +1,10 @@
 """Run the JAX package and the PyTorch port on the same rendered drive, on
 the CPU, and print what each did.
 
-    env PYTHONPATH=. JAX_PLATFORMS=cpu python tools/port_reference.py
+    env PYTHONPATH=. JAX_PLATFORMS=cpu python tools/port_reference.py [PART ...]
+
+With no PART every part runs; otherwise the named ones (seeded, init,
+system, wall, circle, depth).
 
 The drive is chip_smoke.py's (BirdSequence, speed 0.12 m and yaw 0.004 rad
 per frame, 30 frames after the first), cut to half size so that it runs on
@@ -26,7 +29,13 @@ Four parts, each for both packages:
   the loop phase's circle (`chip_smoke.CIRCLE`, 142 frames) at the same
   half size: the loops closed, each one's keyframe pair and Sim3 scale, the
   keyframe ATE (rigid, no scale) just before the first GBA round lands and
-  at the end, the GBA rounds landed.
+  at the end, the GBA rounds landed;
+- depth: `System.track_stereo` and `System.track_rgbd` (loop closing off)
+  over chip_smoke.py's depth drives cut to half size: the KITTI stereo
+  configuration at 620×188 with 1000 features over 16 frames, TUM1's RGB-D
+  one at 320×240 with 600 features (the depth initialization needs 500
+  depth-valid keypoints) over 30 frames; ATE against ground truth in the
+  first keyframe's frame with no scale alignment.
 
 Each package extracts its own keypoints from the same images. Prints one
 JSON object with both packages' summaries.
@@ -252,6 +261,66 @@ def walls():
     return out
 
 
+N_DEPTH = dict(stereo=16, rgbd=30)
+DEPTH_FEATURES = dict(stereo=1000, rgbd=600)
+
+
+def half_depth_config(cls, name):
+    """chip_smoke.py's depth configuration for either package (`cls` its
+    SlamConfig), the camera cut to half size."""
+    path = str(smoke.ROOT / "configs" / ("kitti00-02_stereo.yaml"
+                                         if name == "stereo"
+                                         else "tum1_rgbd.yaml"))
+    cfg = cls.from_yaml(path, sensor=name)
+    c = cfg.camera
+    cfg.camera = c._replace(
+        fx=c.fx * SCALE, fy=c.fy * SCALE, cx=c.cx * SCALE, cy=c.cy * SCALE,
+        width=round(c.width * SCALE), height=round(c.height * SCALE),
+        bf=c.bf * SCALE, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    cfg.orb = cfg.orb._replace(n_features=DEPTH_FEATURES[name])
+    return cfg
+
+
+def depths():
+    """Both packages' System over the two depth drives at half size."""
+    from orbslam_birdview_tpu.api.system import System as JSystem
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.api.system import System
+
+    out = {}
+    for name in ("stereo", "rgbd"):
+        pcfg = half_depth_config(SlamConfig, name)
+        wall = smoke.STEREO_WALL if name == "stereo" else smoke.RGBD_WALL
+        seq, frames, render = smoke.render_depth_drive(
+            name, pcfg, N_DEPTH[name], wall)
+        out[name] = dict(image=f"{pcfg.camera.width}x{pcfg.camera.height}",
+                         features=pcfg.orb.n_features, **render)
+        for pkg, system in (
+                ("jax", JSystem(half_depth_config(JSlamConfig, name),
+                                enable_loop_closing=False)),
+                ("port_cpu", System(pcfg, enable_loop_closing=False,
+                                    device="cpu"))):
+            t0 = time.perf_counter()
+            track = (system.track_stereo if name == "stereo"
+                     else system.track_rgbd)
+            fds = [track(img, second, i / pcfg.fps)
+                   for i, (img, second, _) in enumerate(frames)]
+            system._flush()
+            ok = [fd.pose_ok for fd in fds]
+            first = ok.index(True)
+            store = system.store
+            ref = seq.gt_pose(int(store.kf_frame_id[0]))
+            gts = [smoke.relative_pose(seq.gt_pose(i), ref)
+                   for i in range(len(frames))]
+            out[name][pkg] = dict(
+                init_frame=first, tracked=int(sum(ok)),
+                keyframe_frames=store.kf_frame_id[:store.n_kf].tolist(),
+                map_points=int(store.mp_valid.sum()),
+                wall_s=time.perf_counter() - t0,
+                **smoke.trajectory_errors(fds[first:], gts[first:]))
+    return out
+
+
 def jax_config(drive):
     """The JAX package's configuration of the drive, as `slam_config`."""
     pcfg = smoke.slam_config(drive, P, PB)
@@ -266,26 +335,43 @@ def jax_config(drive):
     return cfg
 
 
+PARTS = ("circle", "system", "wall", "seeded", "init", "depth")
+
+
 def main():
+    parts = sys.argv[1:] or PARTS
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        raise SystemExit(f"unknown parts {sorted(unknown)}; parts: {PARTS}")
+    out = {}
     drive = smoke.render_drive(N_SYSTEM, SCALE, 1000)
     drive.update(P=P, PB=PB)
-    out = dict(circle=circles(), system=systems(drive), wall=walls())
+    if "circle" in parts:
+        out["circle"] = circles()
+    if "system" in parts:
+        out["system"] = systems(drive)
+    if "wall" in parts:
+        out["wall"] = walls()
+    if "depth" in parts:
+        out["depth"] = depths()
     drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     cpu = torch.device("cpu")
     st = smoke.seed_state(drive["seq"], drive["frames"][0][0],
                           drive["frames"][0][1], drive["mask"], drive["cfg"],
                           drive["bcfg"], P, PB, cpu)
-    for bird in (True, False):
-        name = "bird" if bird else "mono"
-        out[name] = dict(
-            jax=smoke.summarize(jax_seeded(drive, st, bird)),
-            port_cpu=smoke.summarize(smoke.run_drive(
-                st, drive["frames"], drive["cam"],
-                drive["mask"] if bird else None, bird, cpu)))
-    tracker, init_rec = smoke.init_phase(drive, cpu, floors=False)
-    init_rec["tracked_from_init"], _ = smoke.tracked_from_init_phase(
-        tracker, drive, cpu)
-    out["init"] = dict(jax=jax_init(drive), port_cpu=init_rec)
+    if "seeded" in parts:
+        for bird in (True, False):
+            name = "bird" if bird else "mono"
+            out[name] = dict(
+                jax=smoke.summarize(jax_seeded(drive, st, bird)),
+                port_cpu=smoke.summarize(smoke.run_drive(
+                    st, drive["frames"], drive["cam"],
+                    drive["mask"] if bird else None, bird, cpu)))
+    if "init" in parts:
+        tracker, init_rec = smoke.init_phase(drive, cpu, floors=False)
+        init_rec["tracked_from_init"], _ = smoke.tracked_from_init_phase(
+            tracker, drive, cpu)
+        out["init"] = dict(jax=jax_init(drive), port_cpu=init_rec)
     cam, bv = drive["cam"], drive["bv"]
     out["config"] = dict(front=f"{cam.width}x{cam.height}",
                          bev=f"{bv.width}x{bv.height}", features=[1000, 1000],
