@@ -70,20 +70,37 @@ Phases, each of which must pass (any failure exits non-zero):
    shapes; `stereo_match` / `refine_stereo_subpixel` on the CPU against
    the GPU. The e2e phase (8.) also runs the four stereo and RGB-D tests
    of tests/test_e2e.py with their bars;
-11. reference: the step, `initialize_two_view`, `bundle_adjust`,
+11. cli: the outer surface through the entry points a user calls, on
+   datasets written with the port's PNG writer, with no OpenCV:
+   `cli.run_slam` over a KITTI stereo layout of the depth
+   phase's wall (20 frames at configs/kitti00-02_stereo.yaml; the KITTI
+   file turned into TUM lines and scored by `cli.eval_traj`, ATE < 0.05 m
+   with no scale), over a TUM RGB-D layout (30 frames at TUM1's
+   configuration with the distortion zeroed, 3-channel PNGs, 16-bit depth
+   at factor 5000; ATE < 0.05 m; `--viz-every 10`'s overlays and maps
+   decode), and over the fork's fisheye-birdview layout (every
+   `FrameRecord` equal to the render bit for bit after the front mask,
+   the origin crop and the 0.5× resize; 15 frames through the CLI, the
+   trajectory, keyframe and odometry files written; tracking not held);
+   `cli.run_synthetic --mode bird --frames 40` (METRIC ATE < 0.05 m);
+   `LiveViewer` on the system phase's `System` (/state, /frame); the
+   native loader against the port's decoder. The gather's launches held
+   to the path rule in every run;
+12. reference: the step, `initialize_two_view`, `bundle_adjust`,
    `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
    `optimize_sim3_two_frame`, the three pose-graph solvers and
    `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
    must agree.
 
 Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
-JSON line, a `system` JSON line, a `loop` JSON line, a `depth` JSON line
-and, last, `{"ok": true, "device": {...}}`.
+JSON line, a `system` JSON line, a `loop` JSON line, a `depth` JSON line, a
+`cli` JSON line and, last, `{"ok": true, "device": {...}}`.
 Writes the full record to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import subprocess
@@ -223,6 +240,9 @@ RGBD_FRAMES = 60
 RGBD_WALL = dict(wall_z=2.0, step=0.01, push=0.002)     # TUM's hand pace
 MIN_DEPTH_TRACKED_SHARE = 0.95
 MAX_DEPTH_ATE_M = 0.05
+# cli: frames of each CLI run, and the ATE bar of the scored runs
+CLI_FRAMES = dict(kitti=20, tum=30, fisheye=15, synthetic=40)
+MAX_CLI_ATE_M = 0.05
 # stereo_match / refine_stereo_subpixel, CPU against GPU on a small pair:
 # integer matches equal; uR from SAD sums in another order
 SMALL_STEREO_UR_TOL = 1e-4
@@ -1931,6 +1951,22 @@ def render_depth_drive(name, cfg, n_frames, wall):
                              frames_wall_in_view=wall_in_view)
 
 
+def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
+    """The gather's launches against the path rule: per_fused a fused
+    frame, per_slow a slow-path one; 0 on a CPU (the plain version)."""
+    counters = dict(system.tracker.timer.counters)
+    fused, slow = counters.get("track.fused", 0), counters.get("track.slow",
+                                                               0)
+    check(fused + slow == n_frames,
+          f"{name}: {fused} fused + {slow} slow of {n_frames} frames")
+    want = per_fused * fused + per_slow * slow if dev.type == "cuda" else 0
+    check(launches == want, f"{name}: patch kernel launched {launches} "
+          f"times, expected {want} ({fused} fused, {slow} slow frames)")
+    return dict(patch_gather_launches=launches, fused_frames=fused,
+                slow_path_frames=slow,
+                launches_per_frame=dict(fused=per_fused, slow=per_slow))
+
+
 def depth_drive(name, dev):
     """One depth drive through `System` (loop closing on) after one
     `prewarm`, then `_flush`; held to the depth bars and the exact
@@ -1962,13 +1998,8 @@ def depth_drive(name, dev):
     launches = patch_kernel.LAUNCHES
     store, mapper, tracker = system.store, system.mapper, system.tracker
     counters = dict(tracker.timer.counters)
-    fused, slow = counters.get("track.fused", 0), counters.get("track.slow", 0)
     per = (2, 3) if name == "stereo" else (1, 1)
-    want = (per[0] * fused + per[1] * slow) if dev.type == "cuda" else 0
-    check(fused + slow == n_frames, f"{name}: {fused} fused + {slow} slow "
-          f"frames of {n_frames}")
-    check(launches == want, f"{name}: patch kernel launched {launches} "
-          f"times, expected {want} ({fused} fused, {slow} slow frames)")
+    rule = launch_rule(system, launches, n_frames, *per, dev, name)
     ok = [fd.pose_ok for fd in fds]
     check(any(ok), f"{name}: the system never initialized")
     first = ok.index(True)
@@ -1995,7 +2026,6 @@ def depth_drive(name, dev):
         local_ba=dict(dispatched=mapper.stats["ba_dispatched"],
                       landed=mapper.stats["ba_landed"],
                       stereo_edges=mapper.stats["ba_stereo_edges"]),
-        fused_frames=fused, slow_path_frames=slow,
         fallback_frames=counters.get("track.fallback", 0),
         loops_closed=system.loop_closer.n_loops_closed, **err,
         wall_in_view={k: err_view[k] for k in ("ate_m", "scale_ratio",
@@ -2005,8 +2035,7 @@ def depth_drive(name, dev):
                      note="host clock around each track_* call with a "
                           "device sync after it; frame 0 pays the "
                           "initialization"),
-        patch_gather_launches=launches,
-        launches_per_frame=dict(fused=per[0], slow=per[1]),
+        **rule,
         floors=dict(init_frame=0, tracked_share=MIN_DEPTH_TRACKED_SHARE,
                     ate_m_wall_in_view=MAX_DEPTH_ATE_M))
 
@@ -2323,6 +2352,396 @@ def small_mapping_ops_reference(dev):
                 fuse_matches=int(cf[4]))
 
 
+# ---------------------------------------------------------------------------
+# cli: the dataset CLI, the scorer, the synthetic runner, the live viewer
+# and the native loader, on datasets written with the port's PNG writer
+# ---------------------------------------------------------------------------
+
+def run_cli(main_fn, argv):
+    """`main_fn(argv)` with its printing caught: (its result, its last
+    printed lines, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    return result, buf.getvalue().splitlines()[-3:], time.perf_counter() - t0
+
+
+def cli_config(src, dst, scale=1.0, zero_distortion=False):
+    """The repo's configuration file, or a copy with the distortion zeroed
+    and (for a rehearsal on a CPU) the camera scaled by `scale`."""
+    if scale == 1.0 and not zero_distortion:
+        return str(src)
+    scaled = ("Camera.fx", "Camera.fy", "Camera.cx", "Camera.cy", "Camera.bf")
+    lines = []
+    for line in Path(src).read_text().splitlines():
+        key, _, val = line.partition(":")
+        key = key.strip()
+        if zero_distortion and key in ("Camera.k1", "Camera.k2", "Camera.p1",
+                                       "Camera.p2", "Camera.k3"):
+            line = f"{key}: 0.0"
+        elif key in scaled:
+            line = f"{key}: {float(val) * scale}"
+        elif key in ("Camera.width", "Camera.height"):
+            line = f"{key}: {round(float(val) * scale)}"
+        elif key == "ORBextractor.nFeatures" and scale != 1.0:
+            line = f"{key}: {max(1000, round(float(val) * scale))}"
+        lines.append(line)
+    Path(dst).write_text("\n".join(lines) + "\n")
+    return str(dst)
+
+
+def gray8(img):
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def write_tum_poses(path, stamps, poses):
+    """World→camera poses as TUM lines (camera centre, its rotation)."""
+    from orbslam_birdview_tpu_torch.core import lie
+    with open(path, "w") as f:
+        for ts, (R, t) in zip(stamps, poses):
+            R = np.asarray(R, np.float64)
+            c = -R.T @ np.asarray(t, np.float64)
+            q = lie.rot_to_quat(torch.as_tensor(R.T.copy())).numpy()
+            f.write(f"{ts:.6f} {c[0]:.9f} {c[1]:.9f} {c[2]:.9f} "
+                    f"{q[1]:.9f} {q[2]:.9f} {q[3]:.9f} {q[0]:.9f}\n")
+
+
+def cli_kitti(tmp, dev, scale, n_frames):
+    """KITTI stereo layout of the depth phase's 12 m wall drive through
+    `run_slam --dataset kitti_stereo`; the KITTI file scored with
+    `eval_traj` against the written ground truth, SE3 alignment, no
+    scale."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils import imageio
+
+    cfg_path = cli_config(ROOT / "configs" / "kitti00-02_stereo.yaml",
+                          tmp / "kitti.yaml", scale)
+    cfg = SlamConfig.from_yaml(cfg_path, sensor="stereo")
+    seq, frames, render = render_depth_drive("stereo", cfg, n_frames,
+                                             STEREO_WALL)
+    root = tmp / "kitti"
+    for d in ("image_0", "image_1"):
+        (root / d).mkdir(parents=True)
+    t0 = time.perf_counter()
+    for i, (left, right, _) in enumerate(frames):
+        imageio.imwrite(root / "image_0" / f"{i:06d}.png", left)
+        imageio.imwrite(root / "image_1" / f"{i:06d}.png", right)
+    write_s = time.perf_counter() - t0
+    (root / "times.txt").write_text(
+        "".join(f"{i / cfg.fps:e}\n" for i in range(n_frames)))
+    out, out_kf = tmp / "kitti_traj.txt", tmp / "kitti_kf.txt"
+    patch_kernel.LAUNCHES = 0
+    res, tail, secs = run_cli(run_slam.main, [
+        "--dataset", "kitti_stereo", "--root", str(root), "--config",
+        cfg_path, "--out", str(out), "--out-kf", str(out_kf),
+        "--device", dev.type])
+    launches = patch_kernel.LAUNCHES
+    rec = dict(config=("configs/kitti00-02_stereo.yaml" if scale == 1.0
+                       else f"kitti00-02_stereo.yaml at scale {scale}"),
+               image=f"{cfg.camera.width}x{cfg.camera.height}",
+               features=cfg.orb.n_features, frames_read=res["frames"],
+               png_write_s=write_s, run_s=secs, printed=tail,
+               call_ms=wall_stats([t * 1e3 for t in res["times_s"][1:]]),
+               **launch_rule(res["system"], launches, n_frames, 2, 3, dev,
+                             "kitti_stereo"))
+    check(res["frames"] == n_frames, f"cli kitti: read {res['frames']} of "
+          f"{n_frames} frames")
+    rows = np.loadtxt(out, ndmin=2)
+    check(rows.shape == (n_frames, 12),
+          f"cli kitti: the KITTI file holds {rows.shape}")
+    stamps = [float(x) for x in (root / "times.txt").read_text().split()]
+    # KITTI rows are camera→world [R | c]: back to world→camera
+    poses = [(T[:, :3].T, -T[:, :3].T @ T[:, 3])
+             for T in rows.reshape(-1, 3, 4)]
+    write_tum_poses(tmp / "kitti_est_tum.txt", stamps, poses)
+    write_tum_poses(tmp / "kitti_gt_tum.txt", stamps,
+                    [seq.gt_pose(i) for i in range(n_frames)])
+    m = eval_traj.evaluate(str(tmp / "kitti_gt_tum.txt"),
+                           str(tmp / "kitti_est_tum.txt"), with_scale=False)
+    rec.update(ate_m=m["ate_rmse"], rpe_trans_m=m["rpe_trans_rmse"],
+               rpe_rot_deg=m["rpe_rot_rmse_deg"], pairs=m["n_pairs"],
+               keyframes=len(np.loadtxt(out_kf, ndmin=2)),
+               frames_wall_in_view=render["frames_wall_in_view"])
+    check(m["n_pairs"] == n_frames and m["ate_rmse"] < MAX_CLI_ATE_M,
+          f"cli kitti: ATE {m['ate_rmse']} m over {m['n_pairs']} pairs")
+    return rec
+
+
+def cli_tum(tmp, dev, scale, n_frames):
+    """TUM RGB-D layout of the depth phase's 2 m wall (3-channel PNGs,
+    16-bit depth at factor 5000, depth stamps 5 ms later) through
+    `run_slam --dataset tum_rgbd --viz-every 10`."""
+    from orbslam_birdview_tpu_torch.api.config import SlamConfig
+    from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils import imageio
+
+    cfg_path = cli_config(ROOT / "configs" / "tum1_rgbd.yaml",
+                          tmp / "tum1_rgbd.yaml", scale, zero_distortion=True)
+    cfg = SlamConfig.from_yaml(cfg_path, sensor="rgbd")
+    seq, frames, _ = render_depth_drive("rgbd", cfg, n_frames, RGBD_WALL)
+    root = tmp / "tum"
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    rgb, depth, stamps = ["# color images"], ["# depth maps"], []
+    t0 = time.perf_counter()
+    for i, (img, d, _) in enumerate(frames):
+        ts = 1305031102.0 + i / cfg.fps
+        stamps.append(ts)
+        imageio.imwrite(root / "rgb" / f"{ts:.6f}.png",
+                        np.repeat(gray8(img)[..., None], 3, -1))
+        imageio.imwrite(root / "depth" / f"{ts + 0.005:.6f}.png",
+                        np.rint(d * cfg.depth_map_factor).astype(np.uint16))
+        rgb.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        depth.append(f"{ts + 0.005:.6f} depth/{ts + 0.005:.6f}.png")
+    write_s = time.perf_counter() - t0
+    (root / "rgb.txt").write_text("\n".join(rgb) + "\n")
+    (root / "depth.txt").write_text("\n".join(depth) + "\n")
+    out, viz_dir = tmp / "tum_traj.txt", tmp / "tum_viz"
+    patch_kernel.LAUNCHES = 0
+    res, tail, secs = run_cli(run_slam.main, [
+        "--dataset", "tum_rgbd", "--root", str(root), "--config", cfg_path,
+        "--out", str(out), "--viz-every", "10", "--viz-dir", str(viz_dir),
+        "--device", dev.type])
+    launches = patch_kernel.LAUNCHES
+    rec = dict(config=("configs/tum1_rgbd.yaml (distortion zeroed)"
+                       if scale == 1.0 else f"tum1_rgbd.yaml at {scale}"),
+               image=f"{cfg.camera.width}x{cfg.camera.height}",
+               features=cfg.orb.n_features, frames_read=res["frames"],
+               png_write_s=write_s, run_s=secs, printed=tail,
+               call_ms=wall_stats([t * 1e3 for t in res["times_s"][1:]]),
+               **launch_rule(res["system"], launches, n_frames, 1, 1, dev,
+                             "cli tum_rgbd"))
+    check(res["frames"] == n_frames, f"cli tum: read {res['frames']} of "
+          f"{n_frames} frames")
+    write_tum_poses(tmp / "tum_gt.txt", stamps,
+                    [seq.gt_pose(i) for i in range(n_frames)])
+    m = eval_traj.evaluate(str(tmp / "tum_gt.txt"), str(out),
+                           with_scale=False)
+    rec.update(ate_m=m["ate_rmse"], pairs=m["n_pairs"])
+    check(m["n_pairs"] == n_frames and m["ate_rmse"] < MAX_CLI_ATE_M,
+          f"cli tum: ATE {m['ate_rmse']} m over {m['n_pairs']} pairs")
+    shapes = {}
+    for name in sorted(p.name for p in viz_dir.iterdir()):
+        shapes[name] = list(imageio.imread(viz_dir / name).shape)
+    want = [f"{kind}_{n:06d}.png" for kind in ("frame", "map")
+            for n in range(10, n_frames + 1, 10)]
+    check(sorted(shapes) == sorted(want), f"cli tum: viz files {shapes}")
+    check(all(v == [cfg.camera.height, cfg.camera.width, 3]
+              for k, v in shapes.items() if k.startswith("frame")) and
+          all(v == [480, 640, 3] for k, v in shapes.items()
+              if k.startswith("map")), f"cli tum: viz shapes {shapes}")
+    rec["viz"] = shapes
+    return rec
+
+
+def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
+    """The fork's layout (five-field associate.txt; image/ holding each
+    front render repeated 2× along both axes inside a larger canvas, so the
+    loader's origin crop and 0.5× resize give it back; birdview/; colour
+    mask/; a global front mask over one band): every `FrameRecord` equal
+    to the render bit for bit, then `run_slam --dataset fisheye_bird`."""
+    from orbslam_birdview_tpu_torch.cli import datasets, run_slam
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils import imageio
+
+    root = tmp / "fisheye"
+    for d in ("image", "birdview", "mask"):
+        (root / d).mkdir(parents=True)
+    h, w = frames[0][0].shape
+    margin = 20 if (w, h) == (950, 400) else 0   # the loader crops 1900×800
+    band = slice(h // 10, h // 10 + 20)         # masked rows, half size
+    fm = np.zeros((2 * h + margin, 2 * w + margin, 3), np.uint8)
+    fm[2 * band.start:2 * band.stop, :, 1] = 255
+    fm[:, :, 2] = 250
+    imageio.imwrite(root / "mask_new_front.png", fm)
+    rng = np.random.default_rng(0)
+    lines, want = [], []
+    t0 = time.perf_counter()
+    for i, (img, bev, _) in enumerate(frames):
+        name = f"{i:06d}.png"
+        front = gray8(img)
+        canvas = np.full((2 * h + margin, 2 * w + margin), 255, np.uint8)
+        canvas[:2 * h, :2 * w] = np.repeat(np.repeat(front, 2, 0), 2, 1)
+        imageio.imwrite(root / "image" / name, canvas)
+        imageio.imwrite(root / "birdview" / name, gray8(bev))
+        m = rng.integers(0, 256, mask.shape + (3,)).astype(np.uint8)
+        m[..., 1] = np.where(mask > 0, rng.integers(20, 256, mask.shape),
+                             rng.integers(0, 20, mask.shape))
+        imageio.imwrite(root / "mask" / name, m)
+        x, y, th = seq.gt_pose2d(i)
+        x, y, th = float(x), float(y), float(th)   # repr() round-trips
+        lines.append(f"{1535697686.0 + i / 25.0:.6f} {x!r} {y!r} {th!r} "
+                     f"{name}")
+        expect = front.astype(np.float32)
+        expect[band] = 0.0
+        want.append((expect, gray8(bev).astype(np.float32),
+                     mask.astype(np.float32),
+                     np.array([x, y, th])))
+    write_s = time.perf_counter() - t0
+    (root / "associate.txt").write_text("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    recs = list(datasets.load_fisheye_birdview(str(root)))
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    check(len(recs) == len(frames), f"cli fisheye: {len(recs)} records")
+    for i, (r, (front, bird, bmask, odom)) in enumerate(zip(recs, want)):
+        for name, got, exp in (("front", r.img, front), ("bird", r.bird, bird),
+                               ("bird mask", r.bird_mask, bmask),
+                               ("odom", r.odom_pose, odom)):
+            check(got.dtype == exp.dtype and got.shape == exp.shape
+                  and np.array_equal(got, exp),
+                  f"cli fisheye: frame {i}'s {name} differs from the render")
+    out, out_kf = tmp / "fisheye_traj.txt", tmp / "fisheye_kf.txt"
+    patch_kernel.LAUNCHES = 0
+    res, tail, secs = run_cli(run_slam.main, [
+        "--dataset", "fisheye_bird", "--root", str(root), "--config",
+        cfg_path, "--out", str(out), "--out-kf", str(out_kf),
+        "--device", dev.type])
+    launches = patch_kernel.LAUNCHES
+    n = len(frames)
+    check(res["frames"] == n, f"cli fisheye: read {res['frames']} of {n}")
+    # 2 a bird frame fed, whatever its path (a reset restarts the
+    # tracker's counters, so the frames are counted here)
+    check_launches(launches, n, dev)
+    odom = tmp / "fisheye_kf_odom.txt"
+    written = {p.name: len(p.read_text().splitlines())
+               for p in (out, out_kf, odom) if p.exists()}
+    check(len(written) == 3, f"cli fisheye: files written {written}")
+    return dict(front=f"{2 * w + margin}x{2 * h + margin} canvas -> "
+                      f"{w}x{h}", records_equal_render=len(recs),
+                loader_ms_per_frame=load_ms, png_write_s=write_s,
+                frames_read=res["frames"], run_s=secs, printed=tail,
+                lines_written=written,
+                tracked_frames=written.get(out.name, 0),
+                note="tracking not held: the CLI applies the reference's "
+                     "hard-coded camera-to-base extrinsics, which the "
+                     "synthetic drive's forward camera does not match",
+                patch_gather_launches=launches, launches_per_frame=2)
+
+
+def cli_synthetic(dev, n_frames):
+    """`run_synthetic --mode bird` (640×480, 1000 features, the sequence's
+    own extrinsics): the printed metric ATE under MAX_CLI_ATE_M."""
+    from orbslam_birdview_tpu_torch.cli import run_synthetic
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+
+    patch_kernel.LAUNCHES = 0
+    res, tail, secs = run_cli(run_synthetic.main, [
+        "--mode", "bird", "--frames", str(n_frames), "--device", dev.type])
+    launches = patch_kernel.LAUNCHES
+    want = 2 * n_frames if dev.type == "cuda" else 0
+    check(launches == want, f"cli run_synthetic: patch kernel launched "
+          f"{launches} times, expected {want}")
+    check(any("METRIC ATE" in line for line in tail),
+          f"cli run_synthetic printed {tail}")
+    check(res["ate_m"] < MAX_CLI_ATE_M,
+          f"cli run_synthetic: METRIC ATE {res['ate_m']} m")
+    return dict(res, run_s=secs, printed=tail,
+                patch_gather_launches=launches, launches_per_frame=2)
+
+
+def cli_viewer(system, img):
+    """`LiveViewer` on a running System: /state counts its map points,
+    /frame serves a PNG that decodes after `update_frame`."""
+    import urllib.request
+
+    from orbslam_birdview_tpu_torch.utils import imageio
+    from orbslam_birdview_tpu_torch.utils.live_viewer import LiveViewer
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    viewer = LiveViewer(system, host="127.0.0.1", port=0).start()
+    try:
+        t0 = time.perf_counter()
+        state_status, body = get(viewer.url + "state")
+        state_ms = (time.perf_counter() - t0) * 1e3
+        snap = json.loads(body)
+        check(state_status == 200 and snap["n_mp"] == system.n_map_points(),
+              f"cli viewer: /state {state_status}, {snap.get('n_mp')} "
+              f"points of {system.n_map_points()}")
+        first, _ = get(viewer.url + "frame")
+        t0 = time.perf_counter()
+        viewer.update_frame(img, system.tracker.last_frame)
+        update_ms = (time.perf_counter() - t0) * 1e3
+        st, png = get(viewer.url + "frame")
+        check(st == 200, f"cli viewer: /frame {st} after update_frame")
+        decoded = imageio.decode_png(png)[0]
+        check(decoded.shape == img.shape + (3,),
+              f"cli viewer: /frame decodes at {decoded.shape}")
+        page, _ = get(viewer.url)
+    finally:
+        viewer.stop()
+    return dict(state_status=state_status, n_mp=snap["n_mp"],
+                n_kf=snap["n_kf"],
+                state_ms=state_ms, first_frame_status=first,
+                update_frame_ms=update_ms, frame_png_bytes=len(png),
+                frame_shape=list(decoded.shape), page_status=page)
+
+
+def cli_native(tmp):
+    """The native prefetching loader over the KITTI left PNGs against the
+    port's decoder, where the library loads."""
+    from orbslam_birdview_tpu_torch.utils import imageio, native_loader
+
+    ok = native_loader.native_available()
+    rec = dict(native_available=ok)
+    if ok:
+        paths = sorted((tmp / "kitti" / "image_0").iterdir())
+        t0 = time.perf_counter()
+        frames = list(native_loader.PrefetchLoader(paths))
+        rec["prefetch_ms_per_frame"] = ((time.perf_counter() - t0) * 1e3
+                                        / len(paths))
+        for p, f in zip(paths, frames):
+            check(np.array_equal(f, imageio.imread(p, 0).astype(np.float32)),
+                  f"cli native: {p.name} differs from the port's decode")
+        rec["frames_equal"] = len(frames)
+    return rec
+
+
+def cli_phase(dev, system, drive, scale=1.0, frames=None):
+    """The outer surface on the card: see the module docstring (12.).
+    `scale` and `frames` cut the sizes for a rehearsal on a CPU."""
+    import tempfile
+
+    from orbslam_birdview_tpu_torch.utils import imageio
+
+    n = dict(CLI_FRAMES, **(frames or {}))
+    t_phase = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="cli_", dir=ROOT /
+                                     "chiprun_out") as d:
+        tmp = Path(d)
+        rec["kitti_stereo"] = cli_kitti(tmp, dev, scale, n["kitti"])
+        rec["tum_rgbd"] = cli_tum(tmp, dev, scale, n["tum"])
+        fisheye_cfg = cli_config(ROOT / "configs" / "fisheye_birdview.yaml",
+                                 tmp / "fisheye.yaml", scale)
+        rec["fisheye_bird"] = cli_fisheye(
+            tmp, dev, drive["seq"], drive["frames"][:n["fisheye"]],
+            drive["mask"], fisheye_cfg)
+        rec["run_synthetic"] = cli_synthetic(dev, n["synthetic"])
+        rec["live_viewer"] = cli_viewer(system, drive["frames"][0][0])
+        rec["native_loader"] = cli_native(tmp)
+        path = tmp / "kitti" / "image_0" / "000000.png"
+        t0 = time.perf_counter()
+        for _ in range(5):
+            imageio.imread(path, imageio.IMREAD_GRAYSCALE)
+        rec["png_decode_ms"] = dict(
+            ms=(time.perf_counter() - t0) * 1e3 / 5, file=path.name,
+            note="a KITTI left frame as the port's writer stores it (every "
+                 "row Sub-filtered: the row-at-a-time path)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["floors"] = dict(ate_m=MAX_CLI_ATE_M)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2381,7 +2800,7 @@ def main() -> int:
     system_rec = dict(card=card)
     full["system"] = system_rec
     try:
-        _, system_rec["drive"] = system_phase(drive, dev)
+        system, system_rec["drive"] = system_phase(drive, dev)
     finally:
         write_record()
     system_phase_checks(system_rec["drive"])
@@ -2406,6 +2825,14 @@ def main() -> int:
     finally:
         write_record()
     depth_phase_checks(depth_rec)
+    # the outer surface: dataset CLI, scorer, synthetic runner, viewer
+    cli_rec = dict(card=card)
+    full["cli"] = cli_rec
+    try:
+        cli_rec.update(cli_phase(dev, system, drive))
+    finally:
+        write_record()
+    del system
     kitti = depth_rec["gather_kitti_stereo"]
     kernel["kitti_stereo"] = {k: kitti[k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms", "bytes",
@@ -2420,7 +2847,10 @@ def main() -> int:
                     depth_stereo=depth_rec["stereo"]["patch_gather_launches"],
                     depth_rgbd=depth_rec["rgbd"]["patch_gather_launches"],
                     e2e_depth=system_rec["e2e"][
-                        "depth_patch_gather_launches"])
+                        "depth_patch_gather_launches"],
+                    **{f"cli_{k}": cli_rec[k]["patch_gather_launches"]
+                       for k in ("kitti_stereo", "tum_rgbd", "fisheye_bird",
+                                 "run_synthetic")})
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
@@ -2446,6 +2876,7 @@ def main() -> int:
     print(json.dumps({"system": system_rec}))
     print(json.dumps({"loop": {k: v for k, v in loop_rec.items()}}))
     print(json.dumps({"depth": depth_rec}))
+    print(json.dumps({"cli": cli_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

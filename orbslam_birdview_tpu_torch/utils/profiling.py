@@ -1,6 +1,7 @@
 """Per-stage timing + counters: named stage timers with summary stats and
-counters. The timers read the host clock; a stage that must include its
-device work synchronizes inside the stage.
+counters, and a torch.profiler trace context for device profiling. The
+timers read the host clock; a stage that must include its device work
+synchronizes inside the stage.
 """
 from __future__ import annotations
 
@@ -41,6 +42,28 @@ class StageTimer:
     def reset(self):
         self.samples.clear()
         self.counters.clear()
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str):
+    """torch.profiler trace of the enclosed work, CPU and (when a GPU
+    exists) CUDA activity, written as a Chrome trace
+    (`<log_dir>/trace.json`; open it in chrome://tracing or Perfetto)."""
+    import os
+
+    import torch
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 GLOBAL_TIMER = StageTimer()

@@ -1,14 +1,15 @@
 """Synthetic sequences with exact ground truth, in numpy and scipy.
 
-The part of the JAX package's `utils/synth.py` that the port's tests and
-smoke run need — the textured wall seen by a moving camera
-(`WallSequence`, with the wall's exact depth for RGB-D), the textured box
-room seen by the front camera, the textured ground seen by the BEV camera
-(`BirdSequence`), and the ATE metric — without OpenCV: the 3×3 Gaussian is scipy's, and cv2.remap /
+The JAX package's `utils/synth.py` without OpenCV — the textured wall
+seen by a moving camera (`WallSequence`, with the wall's exact depth for
+RGB-D), the textured box room seen by the front camera, the textured
+ground seen by the BEV camera (`BirdSequence`), a camera orbiting inside
+the room (`CircleSequence`), the hostile-imaging model (`degrade`) and the
+ATE metric: the 3×3 Gaussian and the box blur are scipy's, and cv2.remap /
 cv2.warpPerspective become bilinear sampling written out here (the wall
-through the inverse of its homography). The images are close to, not
+through the inverse of its homography). The renders are close to, not
 bit-equal with, the OpenCV ones; parity tests hand one numpy image to both
-packages.
+packages. `degrade` is bit-equal with the JAX one.
 
 `seed_fields` builds the local-map and ground-landmark bundles of a frame
 from ground truth, so the step can be judged without the mapping thread.
@@ -136,6 +137,47 @@ class WallSequence:
         dw_z = R_wc[2, 0] * xn + R_wc[2, 1] * yn + R_wc[2, 2]
         depth = (self.wall_z - p[2]) / np.maximum(dw_z, 1e-9)
         return depth.astype(np.float32)
+
+
+def degrade(img: np.ndarray, i: int, rng: np.random.Generator,
+            noise_std: float = 0.0, blur_px: int = 0,
+            exposure_amp: float = 0.0, exposure_period: int = 80,
+            occluders: int = 0, occluder_size: int = 120,
+            blackout: bool = False) -> np.ndarray:
+    """Hostile-imaging model for stress tests: photometric noise, blur,
+    exposure change and occlusion on a clean render.
+
+    - noise_std: additive Gaussian intensity noise (sensor noise)
+    - blur_px: horizontal box blur (motion blur), odd width applied
+    - exposure_amp: multiplicative gain swinging ±amp over exposure_period
+      frames (auto-exposure drift)
+    - occluders: N gray rectangles sweeping across the image (dynamic
+      foreground objects with NO valid texture)
+    - blackout: the frame is black (dropped exposure / tunnel)
+
+    The box blur is `cv2.blur(img, (blur_px, 1))`'s: a mean over blur_px
+    columns with the reflect-101 border (scipy's "mirror")."""
+    out = np.asarray(img, np.float32).copy()
+    if blackout:
+        return np.zeros_like(out)
+    if exposure_amp:
+        out *= 1.0 + exposure_amp * np.sin(2 * np.pi * i / exposure_period)
+    if blur_px and blur_px > 1:
+        out = ndimage.uniform_filter1d(out, blur_px, axis=1, mode="mirror")
+    if occluders:
+        h, w = out.shape[:2]
+        for k in range(occluders):
+            # deterministic sweep: each occluder crosses the frame over
+            # ~120 frames at its own phase/row
+            x0 = int((i * (7 + 3 * k) + k * 211) % (w + occluder_size)) \
+                - occluder_size
+            y0 = int((k * 313) % max(h - occluder_size, 1))
+            x1 = max(x0, 0)
+            out[y0:y0 + occluder_size,
+                x1:max(x0 + occluder_size, 0)] = 90.0 + 20.0 * k
+    if noise_std:
+        out += rng.normal(0.0, noise_std, out.shape)
+    return np.clip(out, 0, 255)
 
 
 def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
@@ -360,3 +402,43 @@ def keypoints_numpy(kp) -> dict:
         v = getattr(kp, k)
         out[k] = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
     return out
+
+
+@dataclass
+class CircleSequence:
+    """Monocular camera orbiting inside a textured box room — KITTI-style
+    revisits: the trajectory closes a loop every `frames_per_rev` frames.
+    Same vehicle-on-ground pose math as BirdSequence, no BEV stream."""
+
+    cam: PinholeCamera
+    n_frames: int = 400
+    speed: float = 0.05        # m per frame along heading
+    frames_per_rev: int = 400
+    box_half: float = 10.0
+    seed: int = 7
+
+    def __post_init__(self):
+        self.walls = [make_texture(self.seed + i) for i in range(4)]
+        self.R_bc = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
+        self.t_bc = np.array([0.0, 0.0, 1.2], np.float32)
+        self.yaw_rate = 2 * np.pi / self.frames_per_rev
+
+    def gt_pose(self, i: int):
+        yaw = self.yaw_rate * i
+        r = self.speed / self.yaw_rate
+        x = r * np.sin(yaw)
+        y = r * (1 - np.cos(yaw))
+        c, s = np.cos(yaw), np.sin(yaw)
+        R_wb = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        R_wc = R_wb @ self.R_bc
+        t_wc = R_wb @ self.t_bc + np.array([x, y, 0], np.float32)
+        R_cw = R_wc.T
+        t_cw = -R_cw @ t_wc
+        return R_cw, t_cw
+
+    def frame(self, i: int):
+        R_cw, t_cw = self.gt_pose(i)
+        img = render_box_view(self.cam, self.walls, R_cw.astype(np.float64),
+                              t_cw.astype(np.float64),
+                              box_half=self.box_half)
+        return img, (R_cw, t_cw)

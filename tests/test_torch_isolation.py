@@ -1,6 +1,6 @@
-"""The port stands alone: it imports without JAX, the JAX package or
-OpenCV, importing builds nothing, and its entry points refuse to run
-without a GPU unless asked for the CPU.
+"""The port stands alone: it imports without JAX, the JAX package,
+OpenCV or matplotlib, importing builds nothing, and its entry points
+refuse to run without a GPU unless asked for the CPU.
 """
 import os
 import subprocess
@@ -62,6 +62,17 @@ MODULES = [
     "orbslam_birdview_tpu_torch.utils.build",
     "orbslam_birdview_tpu_torch.utils.profiling",
     "orbslam_birdview_tpu_torch.utils.async_fetch",
+    # the outer surface: image files, loaders, scorer, runners, viewers
+    "orbslam_birdview_tpu_torch.utils.imageio",
+    "orbslam_birdview_tpu_torch.utils.native_loader",
+    "orbslam_birdview_tpu_torch.utils.viz",
+    "orbslam_birdview_tpu_torch.utils.ar",
+    "orbslam_birdview_tpu_torch.utils.live_viewer",
+    "orbslam_birdview_tpu_torch.api.ros_adapter",
+    "orbslam_birdview_tpu_torch.cli.datasets",
+    "orbslam_birdview_tpu_torch.cli.eval_traj",
+    "orbslam_birdview_tpu_torch.cli.run_synthetic",
+    "orbslam_birdview_tpu_torch.cli.run_slam",
     "chip_smoke",
 ]
 
@@ -69,7 +80,8 @@ MODULES = [
 def test_imports_without_jax_reference_or_cv2(tmp_path):
     code = textwrap.dedent(f"""
         import importlib, sys
-        for name in ("jax", "jaxlib", "orbslam_birdview_tpu", "cv2"):
+        for name in ("jax", "jaxlib", "orbslam_birdview_tpu", "cv2",
+                     "matplotlib"):
             sys.modules[name] = None      # any import of these now fails
         for name in {MODULES!r}:
             importlib.import_module(name)
@@ -77,7 +89,8 @@ def test_imports_without_jax_reference_or_cv2(tmp_path):
         from orbslam_birdview_tpu_torch.frontend import patch_kernel
         assert build.LOADED == {{}}, build.LOADED
         assert patch_kernel.LAUNCHES == 0
-        assert not any(m.split(".")[0] in ("jax", "orbslam_birdview_tpu")
+        assert not any(m.split(".")[0] in ("jax", "orbslam_birdview_tpu",
+                                           "cv2", "matplotlib")
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
     """)
@@ -150,6 +163,19 @@ def test_system_and_pnp_raise_without_gpu():
     assert lc is system.mapper.loop_closer is system.tracker.loop_closer
     assert lc.device.type == "cpu" and lc.voc.n_words == 100000
     assert lc.kfdb is not None
+
+
+def test_cli_raises_without_gpu(tmp_path):
+    """run_slam and run_synthetic run on cuda unless --device cpu is
+    given."""
+    _no_gpu()
+    from orbslam_birdview_tpu_torch.cli import run_slam, run_synthetic
+
+    (tmp_path / "rgb.txt").write_text("")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_slam.main(["--dataset", "tum_mono", "--root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_synthetic.main(["--mode", "mono", "--frames", "2"])
 
 
 def test_chip_smoke_refuses_without_gpu():
