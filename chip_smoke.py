@@ -86,7 +86,28 @@ Phases, each of which must pass (any failure exits non-zero):
    `LiveViewer` on the system phase's `System` (/state, /frame); the
    native loader against the port's decoder. The gather's launches held
    to the path rule in every run;
-12. reference: the step, `initialize_two_view`, `bundle_adjust`,
+12. parallel (after cli): the multi-device layer on 4 shards of the card
+   (`parallel/`; shards on one card run one after another, so its times
+   are not multi-GPU speeds): (a) `dryrun_multichip` at full scale — the
+   sharded GBA (C=512, P=65,536, E=262,144, mono/stereo/bird, 2+2 LM, 24
+   CG) and the sharded PCG pose graph (K=1024, 10 GN, 128 CG) with their
+   asserts, each timed with CUDA events and profiled for its kernels
+   beside the one-device `bundle_adjust_large` / `optimize_sim3_graph_pcg`
+   on the same problem; the sharded GBA twice, bit for bit, and within
+   1e-3 (poses) and 2e-3 m (median point) of the one-device solve; the
+   sharded pose graph against the spread of f32 solves from summation
+   order alone (the one-device PCG on its edges and on three permutations
+   of them, each held against the one-device PCG in f64): no farther from
+   the f64 solve than PG_SPREAD_FACTOR times the farthest of them; one
+   frame per shard through `extract_orb`; (b) the loop phase's circle
+   through `System(cfg, mesh=Mesh([cuda:0] * 4))`: the loop at the
+   one-device run's keyframe pair, the sharded essential graph and GBA
+   named, keyframe ATE < 0.05 m; (c) two processes with two shards each,
+   gloo through a `file://` store under chiprun_out/, against the
+   in-process 4-shard mesh (translations 1e-3, cost 1e-2 relative), and
+   an NCCL group of world size 1; (d) the JPEG fixtures of tests/data/jpeg
+   against their stored cv2 decodes;
+13. reference: the step, `initialize_two_view`, `bundle_adjust`,
    `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
    `optimize_sim3_two_frame`, the three pose-graph solvers and
    `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
@@ -94,7 +115,9 @@ Phases, each of which must pass (any failure exits non-zero):
 
 Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
 JSON line, a `system` JSON line, a `loop` JSON line, a `depth` JSON line, a
-`cli` JSON line and, last, `{"ok": true, "device": {...}}`.
+`cli` JSON line, a `parallel` JSON line and, last, `{"ok": true, "device":
+{...}}`. `python3 chip_smoke.py --gloo-worker RANK WORLD STORE OUT DEVICE`
+is one process of the parallel phase's (c).
 Writes the full record to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -1359,16 +1382,18 @@ def system_phase(drive, dev):
     return system, rec
 
 
-def profile_region(fn, dev):
+def profile_region(fn, dev, host_ops=True):
     """Run fn() under torch.profiler, then a device sync: the device
     kernels it ran, their busy time, the host-clock time of the call with
-    its sync, and the device's idle share of that time."""
+    its sync, and the device's idle share of that time. Without
+    `host_ops` only the device is traced (a region of ~10⁵ launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync(dev)
@@ -1444,15 +1469,15 @@ def run_circle(system, frames, mask, seq, dt):
                 stages=stages, wall_s=wall_s)
 
 
-def loop_phase(dev):
-    """The circle of tests/test_loop_closing.py (CIRCLE, LOOP_FRAMES) at
-    full width with the fisheye rig through `System(cfg)`: at least one
-    loop closed and the keyframes' metric ATE under MAX_LOOP_ATE_M with no
-    scale alignment after the loop and the GBA. Then one local BA and one
-    GBA round on its map under the profiler."""
+def loop_phase(dev, drive):
+    """The circle of tests/test_loop_closing.py (CIRCLE, LOOP_FRAMES; the
+    drive rendered by the caller) at full width with the fisheye rig
+    through `System(cfg)`: at least one loop closed and the keyframes'
+    metric ATE under MAX_LOOP_ATE_M with no scale alignment after the loop
+    and the GBA. Then one local BA and one GBA round on its map under the
+    profiler."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
 
-    drive = render_drive(LOOP_FRAMES, **CIRCLE)
     cfg = slam_config(drive)
     system = make_system(cfg, dev)
     patch_kernel.LAUNCHES = 0
@@ -2742,6 +2767,352 @@ def cli_phase(dev, system, drive, scale=1.0, frames=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 13. parallel: the multi-device layer on shards of the one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_SHARDS = 4
+GLOO_PROCESSES = 2            # each with PARALLEL_SHARDS // 2 shards
+GLOO_PROBLEM = dict(n_cams=64, n_points=8192)
+WORKER_TIMEOUT_S = 300
+# test_parallel.py::test_sharded_global_ba_all_edge_types' agreement with
+# the one-device solve, and test_sharded_matches_single_device's between
+# meshes
+MAX_GBA_POSE_DIFF = 1e-3
+MAX_GBA_POINT_MEDIAN_M = 2e-3
+MAX_MESH_T_DIFF, MAX_MESH_COST_REL = 1e-3, 1e-2
+# the dry run's pose graph does not converge in 10 GN x 128 CG steps, so
+# its f32 solution moves with the order of the sums: the sharded solve is
+# held to the spread that the one-device solve shows under permutations of
+# its edges, measured in the same run against the f64 solve
+PG_PERMUTATIONS = 3
+PG_SPREAD_FACTOR = 2.0
+
+
+def event_ms(fn, dev):
+    """fn() between two CUDA events (the host enqueues while the device
+    runs; the solvers wait on nothing), and its result."""
+    sync(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def rot_diff(Ra, Rb):
+    """Largest rotation angle (the skew part) of Ra·Rbᵀ over the batch."""
+    D = np.einsum("kij,klj->kil", Ra, Rb)
+    return float(np.abs((D - np.swapaxes(D, 1, 2)) / 2).max())
+
+
+def pose_graph_spread(dev, pgp, sharded, single, n_iters=10, cg_iters=128):
+    """The sharded PCG pose graph against the f32 spread from summation
+    order alone: the one-device PCG in f64 as the reference, the
+    one-device f32 PCG on the edges as given and on PG_PERMUTATIONS
+    permutations of them. Returns each solve's largest translation and
+    scale difference from the f64 one."""
+    from orbslam_birdview_tpu_torch.graph import pose_graph
+    from orbslam_birdview_tpu_torch.parallel import dryrun, runtime
+
+    def on(k, dtype):
+        return torch.as_tensor(pgp[k], device=dev).to(dtype)
+
+    f64 = pose_graph.solve_pcg(
+        runtime.Mesh([dev]), on("R_gt", torch.float64),
+        on("t0", torch.float64), on("s0", torch.float64),
+        on("fixed", torch.bool),
+        [pose_graph._shard(on("e_i", torch.long), on("e_j", torch.long),
+                           *(on(k, torch.float64)
+                             for k in ("mR", "mt", "ms", "e_w")),
+                           on("e_valid", torch.bool))], n_iters, cg_iters)
+    t64, s64 = (x.cpu().numpy() for x in f64[1:3])
+
+    def off(out):
+        t, s = (x.double().cpu().numpy() for x in out[1:3])
+        return [float(np.abs(t - t64).max()), float(np.abs(s - s64).max())]
+
+    rng = np.random.default_rng(7)
+    edges = dryrun.pose_graph_edges(pgp)
+    spread = [off(single)]
+    for _ in range(PG_PERMUTATIONS):
+        perm = rng.permutation(len(pgp["e_i"]))
+        spread.append(off(pose_graph.optimize_sim3_graph_pcg(
+            pgp["R_gt"], pgp["t0"], pgp["s0"], pgp["fixed"],
+            *(np.asarray(e)[perm] for e in edges), n_iters=n_iters,
+            cg_iters=cg_iters, device=dev)))
+    rec = dict(f64_drift_after_m=dryrun.mean_drift(
+        pgp, *(x.cpu().numpy() for x in f64[:3])),
+        sharded_vs_f64=off(sharded), one_device_vs_f64=spread,
+        factor=PG_SPREAD_FACTOR)
+    worst = np.max(np.array(spread), axis=0)
+    check(all(a <= PG_SPREAD_FACTOR * b for a, b in
+              zip(rec["sharded_vs_f64"], worst)),
+          f"parallel: the sharded pose graph is {rec['sharded_vs_f64']} "
+          f"(t, s) from the f64 solve, the one-device f32 solves at most "
+          f"{worst.tolist()}")
+    return rec
+
+
+def parallel_solvers(dev, mesh):
+    """(a): the dry run's sharded GBA and sharded PCG pose graph at full
+    scale, timed beside the one-device solvers on the same problems, each
+    also profiled for its kernel count; the sharded GBA twice, bit for
+    bit."""
+    from orbslam_birdview_tpu_torch.graph import ba_large, pose_graph
+    from orbslam_birdview_tpu_torch.parallel import dryrun
+
+    prob = dryrun.gba_problem()
+    sharded = lambda: dryrun.run_sharded_gba(mesh, prob)   # noqa: E731
+
+    def single():
+        res = ba_large.bundle_adjust_large(
+            prob["R"], prob["t"], prob["fixed"], prob["valid"], prob["X"],
+            np.ones(len(prob["X"]), bool), prob["mono"], prob["stereo"],
+            prob["bird"], dryrun.FX, dryrun.FY, dryrun.CX, dryrun.CY,
+            bf=dryrun.BF, iters_phase1=2, iters_phase2=2, cg_iters=24,
+            device=dev)
+        return res.cam_R, res.cam_t, res.points, res.inl_mono, res.cost
+
+    sharded()                                      # warm: workspaces
+    ms_a, out_a = event_ms(sharded, dev)
+    ms_b, out_b = event_ms(sharded, dev)
+    check(all(torch.equal(x, y) for x, y in zip(out_a, out_b)),
+          "parallel: two sharded GBA runs differ")
+    single()
+    ms_1, out_1 = event_ms(single, dev)
+    R_s, t_s, X_s = (x.cpu().numpy() for x in out_a[:3])
+    R_1, t_1, X_1 = (x.cpu().numpy() for x in out_1[:3])
+    gba = dict(C=len(prob["R"]), P=len(prob["X"]), E=prob["edges"],
+               shards=mesh.n_shards, sharded_ms=[ms_a, ms_b], single_ms=ms_1,
+               cost=float(out_a[4]), single_cost=float(out_1[4]),
+               mono_inlier_share=float(out_a[3].float().mean()),
+               bit_identical=True,
+               max_t_diff=float(np.abs(t_s - t_1).max()),
+               max_rot_diff=rot_diff(R_s, R_1),
+               median_point_diff_m=float(np.median(
+                   np.linalg.norm(X_s - X_1, axis=1))))
+    gba["sharded_profile"] = profile_region(sharded, dev, host_ops=False)
+    gba["single_profile"] = profile_region(single, dev, host_ops=False)
+
+    pgp = dryrun.pose_graph_problem()
+    sharded_pg = lambda: dryrun.run_sharded_pose_graph(mesh, pgp)  # noqa
+
+    def single_pg():
+        return pose_graph.optimize_sim3_graph_pcg(
+            pgp["R_gt"], pgp["t0"], pgp["s0"], pgp["fixed"],
+            *dryrun.pose_graph_edges(pgp), n_iters=10, cg_iters=128,
+            device=dev)
+
+    ms_pg, out_pg = event_ms(sharded_pg, dev)
+    ms_pg1, out_pg1 = event_ms(single_pg, dev)
+    Rs, ts, ss = (x.cpu().numpy() for x in out_pg[:3])
+    R1, t1, s1 = (x.cpu().numpy() for x in out_pg1[:3])
+    pg = dict(K=len(pgp["s0"]), E=len(pgp["e_i"]), shards=mesh.n_shards,
+              sharded_ms=ms_pg, single_ms=ms_pg1, cost=float(out_pg[3]),
+              single_cost=float(out_pg1[3]),
+              drift_before_m=dryrun.mean_drift(pgp, pgp["R_gt"], pgp["t0"],
+                                               pgp["s0"]),
+              drift_after_m=dryrun.mean_drift(pgp, Rs, ts, ss),
+              single_drift_after_m=dryrun.mean_drift(pgp, R1, t1, s1),
+              max_t_diff=float(np.abs(ts - t1).max()),
+              max_s_diff=float(np.abs(ss - s1).max()),
+              max_rot_diff=rot_diff(Rs, R1))
+    pg["spread"] = pose_graph_spread(dev, pgp, out_pg, out_pg1)
+    pg["sharded_profile"] = profile_region(sharded_pg, dev, host_ops=False)
+    pg["single_profile"] = profile_region(single_pg, dev, host_ops=False)
+    return gba, pg
+
+
+def parallel_circle(dev, mesh, drive, one_device):
+    """(b): the loop phase's full-width circle through
+    `System(cfg, device, mesh)` on the 4-shard mesh: the essential graph
+    and the full-map BA take the sharded branches."""
+    from orbslam_birdview_tpu_torch.api.system import System
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+
+    cfg = slam_config(drive)
+    system = System(cfg, device=dev, mesh=mesh)
+    patch_kernel.LAUNCHES = 0
+    rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
+                     1 / 25.0)
+    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    rec["shards"] = mesh.n_shards
+    check_launches(rec["patch_gather_launches"], len(drive["frames"]), dev)
+    check(rec["loops_closed"] >= 1, f"parallel circle: no loop closed")
+    pair = lambda r: (r["loops"][0]["kf"], r["loops"][0]["cand"])  # noqa
+    check(pair(rec) == pair(one_device),
+          f"parallel circle: loop at {pair(rec)}, one device at "
+          f"{pair(one_device)}")
+    solvers = (rec["loops"][-1]["solver"], rec["gba"]["problem"]["solver"])
+    check(solvers == ("sharded-dense", "sharded-implicit"),
+          f"parallel circle: solvers {solvers}")
+    check(rec["ate_m"] < MAX_LOOP_ATE_M,
+          f"parallel circle: keyframe ATE {rec['ate_m']} m")
+    rec["one_device"] = dict(loop=pair(one_device),
+                             ate_before_gba_m=one_device["ate_before_gba_m"],
+                             ate_m=one_device["ate_m"])
+    return rec
+
+
+def gloo_problem():
+    from orbslam_birdview_tpu_torch.parallel import dryrun
+    return dryrun.gba_problem(**GLOO_PROBLEM)
+
+
+def gloo_worker(rank, world, store, out, device="cuda:0"):
+    """One process of (c): PARALLEL_SHARDS // world shards on `device` over
+    a gloo group, the sharded GBA on GLOO_PROBLEM."""
+    import torch.distributed as dist
+
+    from orbslam_birdview_tpu_torch.parallel import dryrun, runtime
+
+    got = runtime.init_distributed(f"file://{store}", world, rank,
+                                   backend="gloo")
+    check(got == (world, rank), f"gloo worker: group {got}")
+    mesh = runtime.Mesh([device] * (PARALLEL_SHARDS // world),
+                        group=dist.group.WORLD)
+    R, t, X, _, cost = dryrun.run_sharded_gba(mesh, gloo_problem())
+    np.savez(out, R=R.cpu().numpy(), t=t.cpu().numpy(), X=X.cpu().numpy(),
+             cost=cost.cpu().numpy(), first_shard=mesh.first_shard)
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_gloo(dev, out_dir, world1_backend="nccl"):
+    """(c): GLOO_PROCESSES processes, each with two shards on the card,
+    their reductions through gloo on CUDA tensors, against this process's
+    4-shard mesh; then an NCCL group of world size 1."""
+    import torch.distributed as dist
+
+    from orbslam_birdview_tpu_torch.parallel import dryrun, runtime
+
+    work = out_dir / "parallel_gloo"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.iterdir():
+        f.unlink()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-worker",
+         str(r), str(GLOO_PROCESSES), str(work / "store"),
+         str(work / f"rank{r}.npz"), str(dev)], cwd=ROOT,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(GLOO_PROCESSES)]
+    errors = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                _, err = proc.communicate(timeout=WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+                errors.append(f"rank {r} timed out")
+            if proc.returncode != 0:
+                errors.append(f"rank {r} exited {proc.returncode}: "
+                              f"{err[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not errors, "parallel gloo: " + "; ".join(errors))
+    rec = dict(processes=GLOO_PROCESSES, shards=PARALLEL_SHARDS,
+               problem=GLOO_PROBLEM, wall_s=time.perf_counter() - t0)
+    mesh = runtime.Mesh([dev] * PARALLEL_SHARDS)
+    R, t, X, _, cost = dryrun.run_sharded_gba(mesh, gloo_problem())
+    t, X, cost = t.cpu().numpy(), X.cpu().numpy(), float(cost)
+    per = X.shape[0] // GLOO_PROCESSES
+    rec["ranks"] = []
+    for r in range(GLOO_PROCESSES):
+        o = np.load(work / f"rank{r}.npz")
+        d = dict(first_shard=int(o["first_shard"]),
+                 max_t_diff=float(np.abs(o["t"] - t).max()),
+                 cost_rel_diff=abs(float(o["cost"]) - cost) / abs(cost),
+                 max_point_diff_m=float(np.abs(
+                     o["X"] - X[r * per:(r + 1) * per]).max()))
+        rec["ranks"].append(d)
+        check(d["max_t_diff"] < MAX_MESH_T_DIFF
+              and d["cost_rel_diff"] < MAX_MESH_COST_REL,
+              f"parallel gloo: rank {r} differs from the in-process mesh "
+              f"({d})")
+    # NCCL at world size 1: a mesh's reduction through the group
+    got = runtime.init_distributed(f"file://{work / 'nccl_store'}", 1, 0,
+                                   backend=world1_backend)
+    try:
+        m = runtime.Mesh([dev] * 2, group=dist.group.WORLD)
+        parts = [torch.arange(4, dtype=torch.float32, device=dev) * (i + 1)
+                 for i in range(2)]
+        total = m.psum(parts)
+        check(got == (1, 0) and torch.equal(total, parts[0] + parts[1]),
+              f"parallel nccl: group {got}, sum {total.tolist()}")
+        rec["world1"] = dict(backend=dist.get_backend(), world=got[0])
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def parallel_jpeg():
+    """(d): the committed JPEG fixtures through the port's decoder, against
+    the cv2.imread arrays stored beside them (this machine has no cv2)."""
+    from orbslam_birdview_tpu_torch.utils import imageio
+
+    rec = {}
+    for path in sorted((ROOT / "tests" / "data" / "jpeg").glob("*.jpg")):
+        want = np.load(path.with_suffix(".npz"))
+        t0 = time.perf_counter()
+        gray = imageio.imread(path, imageio.IMREAD_GRAYSCALE)
+        colour = imageio.imread(path, imageio.IMREAD_COLOR)
+        ms = (time.perf_counter() - t0) * 1e3
+        equal = (np.array_equal(gray, want["gray"])
+                 and np.array_equal(colour, want["color"]))
+        check(equal, f"parallel jpeg: {path.name} differs from its cv2 "
+              "decode")
+        rec[path.name] = dict(shape=list(colour.shape), equal=True,
+                              ms=ms)
+    check(len(rec) >= 4, f"parallel jpeg: {len(rec)} fixtures found")
+    return rec
+
+
+def parallel_phase(dev, loop_drive, one_device_circle):
+    """The multi-device layer on shards of the one card: (a) the dry run
+    at full scale with the one-device solvers beside it, (b) the circle
+    through System on the 4-shard mesh, (c) the cross-process reduction,
+    (d) the JPEG fixtures. Shards on one card run one after another: these
+    are not multi-GPU speeds."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.parallel import dryrun, runtime
+
+    t_phase = time.perf_counter()
+    mesh = runtime.Mesh([dev] * PARALLEL_SHARDS)
+    rec = {}
+    patch_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rec["dryrun"] = dryrun.dryrun_multichip(PARALLEL_SHARDS, mesh=mesh)
+    rec["dryrun"]["wall_s"] = time.perf_counter() - t0
+    rec["dryrun"]["patch_gather_launches"] = patch_kernel.LAUNCHES
+    check(patch_kernel.LAUNCHES == PARALLEL_SHARDS,
+          f"parallel dry run: {patch_kernel.LAUNCHES} gather launches")
+    t0 = time.perf_counter()
+    rec["gba"], rec["pose_graph"] = parallel_solvers(dev, mesh)
+    rec["solvers_s"] = time.perf_counter() - t0
+    g = rec["gba"]
+    check(g["max_t_diff"] < MAX_GBA_POSE_DIFF
+          and g["max_rot_diff"] < MAX_GBA_POSE_DIFF
+          and g["median_point_diff_m"] < MAX_GBA_POINT_MEDIAN_M,
+          f"parallel: the sharded GBA differs from the one-device solve "
+          f"({g['max_t_diff']}, {g['max_rot_diff']}, "
+          f"{g['median_point_diff_m']})")
+    rec["circle"] = parallel_circle(dev, mesh, loop_drive, one_device_circle)
+    rec["gloo"] = parallel_gloo(dev, ROOT / "chiprun_out")
+    rec["jpeg"] = parallel_jpeg()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["note"] = ("shards on one card run one after another: the times are "
+                   "not multi-GPU speeds")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2806,8 +3177,9 @@ def main() -> int:
     system_phase_checks(system_rec["drive"])
     loop_rec = dict(card=card)
     full["loop"] = loop_rec
+    loop_drive = render_drive(LOOP_FRAMES, **CIRCLE)
     try:
-        loop_rec["circle"] = loop_phase(dev)
+        loop_rec["circle"] = loop_phase(dev, loop_drive)
     finally:
         write_record()
     loop_phase_checks(loop_rec["circle"])
@@ -2833,6 +3205,15 @@ def main() -> int:
     finally:
         write_record()
     del system
+    # the multi-device layer on shards of the card, and the JPEG reader
+    parallel_rec = dict(card=card)
+    full["parallel"] = parallel_rec
+    try:
+        parallel_rec.update(parallel_phase(dev, loop_drive,
+                                           loop_rec["circle"]))
+    finally:
+        write_record()
+    del loop_drive
     kitti = depth_rec["gather_kitti_stereo"]
     kernel["kitti_stereo"] = {k: kitti[k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms", "bytes",
@@ -2850,7 +3231,11 @@ def main() -> int:
                         "depth_patch_gather_launches"],
                     **{f"cli_{k}": cli_rec[k]["patch_gather_launches"]
                        for k in ("kitti_stereo", "tum_rgbd", "fisheye_bird",
-                                 "run_synthetic")})
+                                 "run_synthetic")},
+                    parallel_dryrun=parallel_rec["dryrun"][
+                        "patch_gather_launches"],
+                    parallel_circle=parallel_rec["circle"][
+                        "patch_gather_launches"])
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
@@ -2877,6 +3262,7 @@ def main() -> int:
     print(json.dumps({"loop": {k: v for k, v in loop_rec.items()}}))
     print(json.dumps({"depth": depth_rec}))
     print(json.dumps({"cli": cli_rec}))
+    print(json.dumps({"parallel": parallel_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2885,6 +3271,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--gloo-worker"]:
+            sys.exit(gloo_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                 *sys.argv[4:7]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -9,6 +9,11 @@ Loop closing is on by default, with the packaged vocabulary
 (`cfg.vocab_path = "auto"`). `track_stereo` takes the right image, which
 the tracker row-matches against the left one; `track_rgbd` takes a depth
 image in metres (<= 0 where there is none).
+
+`mesh` (a `parallel.runtime.Mesh`) shards the full-map BA and the
+essential graph over its devices; without one, both run on `device`
+alone. Sharding is asked for, never assumed from the GPUs a machine
+shows (the JAX package shards whenever it sees more than one device).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from .. import resolve_device
 from ..core import lie
 from ..mapping import vocab as vocab_mod
 from ..mapping.mapstore import MapStore
+from ..parallel import runtime
 from ..pipeline.local_mapping import LocalMapper
 from ..pipeline.loop_closing import LoopCloser
 from ..pipeline.tracking import LOST, Tracker
@@ -51,9 +57,11 @@ def _load_default_vocabulary(cfg: SlamConfig):
 
 class System:
     def __init__(self, cfg: SlamConfig, vocabulary=None,
-                 enable_loop_closing: bool = True, device=None):
+                 enable_loop_closing: bool = True, device=None,
+                 mesh: Optional[runtime.Mesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.enable_loop_closing = enable_loop_closing
         t0 = time.perf_counter()
         if enable_loop_closing and vocabulary is None:
@@ -73,7 +81,8 @@ class System:
         fresh loop closer attached to both; `register` adds the store's
         keyframes to its database (a loaded map)."""
         self.store = store
-        self.mapper = LocalMapper(self.cfg, store, device=self.device)
+        self.mapper = LocalMapper(self.cfg, store, device=self.device,
+                                  mesh=self.mesh)
         self.tracker = Tracker(self.cfg, store, self.mapper,
                                device=self.device)
         if not self.enable_loop_closing:

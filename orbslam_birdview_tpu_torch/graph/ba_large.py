@@ -19,15 +19,22 @@ camera, so the diagonal blocks of W·Hpp⁻¹·Wᵀ only receive same-edge
 terms). Fixed cameras are projected out of every CG operand, frozen points
 masked, as in `ba._schur_solve`. Both the LM and the CG loops have fixed
 lengths with `torch.where` gates: no host sync.
+
+The solve runs over the map blocks of a `parallel.runtime.Mesh`
+(`solve_global`): each shard holds a block of landmarks and their edges,
+the camera-side sums are summed over the mesh and solved on its first
+device. `bundle_adjust_large` is the one-shard case;
+`parallel/sharded_ba.py` partitions a map over several shards.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
 from ..core import lie
+from ..parallel.runtime import Mesh
 from . import ba
 from .ba import BAResult, EdgeSet, _cost_only, _edge_terms, _inv3x3
 from .segsum import SegmentSum
@@ -56,58 +63,92 @@ def _edge_blocks(cam_R, cam_t, points, edge_sets, intr, use_huber):
             torch.cat(bps), total_cost)
 
 
-def _implicit_schur_step(cam_R, cam_t, points, edge_sets, intr, use_huber,
-                         lam, cam_free, pt_free, cams, ptsi, to_cam, to_pt,
-                         cg_iters):
-    """One damped GN step by matrix-free Schur + PCG; cams / ptsi are the
-    concatenated edge indices, to_cam / to_pt their sum layouts.
-    Returns (dxc (C,6), dxp (P,3), cost_before)."""
-    dtype, dev = cam_R.dtype, cam_R.device
-    C, P = to_cam.n, to_pt.n
-    U, Acc, App, bc_e, bp_e, cost0 = _edge_blocks(
-        cam_R, cam_t, points, edge_sets, intr, use_huber)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hcc = ba._damp(to_cam(Acc), lam)
-    bc = to_cam(bc_e)
-    Hpp = ba._damp(to_pt(App), lam)
-    bp = to_pt(bp_e)
-    # freeze invalid / unreferenced points (as ba._schur_solve)
-    Hpp = torch.where(pt_free[:, None, None], Hpp, eye3.expand(P, 3, 3))
-    bp = torch.where(pt_free[:, None], bp, 0.0)
-    U = U * pt_free[ptsi][:, None, None].to(dtype)
-    G = _inv3x3(Hpp)
-    G_e = G[ptsi]  # (E,3,3)
+class _ShardLayout(NamedTuple):
+    cams: torch.Tensor       # (E,) the shard's edges' cameras, all types
+    ptsi: torch.Tensor       # (E,) their LOCAL points
+    to_cam: SegmentSum
+    to_pt: SegmentSum
+
+
+def _shard_layout(sets, C, Pn) -> _ShardLayout:
+    present = [es for _, es in sets if es is not None]
+    cams = torch.cat([es.cam for es in present])
+    ptsi = torch.cat([es.pt for es in present])
+    return _ShardLayout(cams, ptsi, SegmentSum(cams, C), SegmentSum(ptsi, Pn))
+
+
+def _implicit_schur_step(mesh, cam_R, cam_t, cam_free, points, pt_free,
+                         shard_sets, lays, intr, lam, cg_iters,
+                         use_huber=True):
+    """One damped GN step by matrix-free Schur + PCG over the map blocks
+    of `mesh`: shard s holds `points[s]`, its typed edge sets
+    `shard_sets[s]` = [(kind, EdgeSet)] with LOCAL point indices and their
+    layout `lays[s]`, on its device; the cameras lie on the first device.
+    The camera blocks and the preconditioner are summed over the mesh
+    once, each CG matvec's (C,6) vector once; the camera system is solved
+    on the first device. Returns (dxc (C,6), [dxp (P_shard,3)], cost)."""
+    C = cam_R.shape[0]
+    dtype, d0 = cam_R.dtype, cam_R.device
+    Rs, ts, lams = (mesh.broadcast(x) for x in (cam_R, cam_t, lam))
+    eye6 = torch.eye(6, dtype=dtype, device=d0)
+    acc, bcs, costs, local = [], [], [], []
+    for R, t, X, sets, lay, pf, lm in zip(Rs, ts, points, shard_sets, lays,
+                                          pt_free, lams):
+        U, Acc, App, bc_e, bp_e, cost = _edge_blocks(
+            R, t, X, sets, intr, use_huber)
+        acc.append(lay.to_cam(Acc))
+        bcs.append(lay.to_cam(bc_e))
+        costs.append(cost)
+        Pn = X.shape[0]
+        eye3 = torch.eye(3, dtype=dtype, device=X.device).expand(Pn, 3, 3)
+        # freeze invalid / unreferenced points (as ba._schur_solve)
+        Hpp = torch.where(pf[:, None, None], ba._damp(lay.to_pt(App), lm),
+                          eye3)
+        bp = torch.where(pf[:, None], lay.to_pt(bp_e), 0.0)
+        U = U * pf[lay.ptsi][:, None, None].to(dtype)
+        local.append((U, _inv3x3(Hpp), bp, lay, pf))
+    # the camera system: summed over the shards, damped after the sum
+    Hcc = ba._damp(mesh.psum(acc), lam)
+    bc = mesh.psum(bcs)
 
     # every per-edge / per-block product is a broadcast multiply-reduce
-    def W_apply(y):   # (P,3) -> (C,6)
-        return to_cam(torch.sum(U * y[ptsi][:, None, :], -1))
+    def W_apply(ys):   # [(P_shard,3)] -> (C,6), summed over the mesh
+        return mesh.psum([lay.to_cam(torch.sum(U * y[lay.ptsi][:, None, :],
+                                               -1))
+                          for (U, _, _, lay, _), y in zip(local, ys)])
 
-    def WT_apply(x):  # (C,6) -> (P,3)
-        return to_pt(torch.sum(U * x[cams][:, :, None], 1))
+    def WT_apply(s, x):   # (C,6) on shard s's device -> (P_shard,3)
+        U, _, _, lay, _ = local[s]
+        return lay.to_pt(torch.sum(U * x[lay.cams][:, :, None], 1))
 
     def proj(x):
         return torch.where(cam_free[:, None], x, 0.0)
 
     def S_apply(x):   # (C,6) -> (C,6), projected to the free cameras
         x = proj(x)
-        y = torch.sum(G * WT_apply(x)[:, None, :], -1)
-        return proj(torch.sum(Hcc * x[:, None, :], -1) - W_apply(y))
+        ys = [torch.sum(G * WT_apply(s, xs)[:, None, :], -1)
+              for s, ((_, G, _, _, _), xs) in enumerate(
+                  zip(local, mesh.broadcast(x)))]
+        return proj(torch.sum(Hcc * x[:, None, :], -1) - W_apply(ys))
 
-    # exact block-Jacobi preconditioner of S
-    T_e = torch.sum(U[:, :, :, None] * G_e[:, None, :, :], 2)   # U·G
-    D_e = torch.sum(T_e[:, :, None, :] * U[:, None, :, :], -1)  # U·G·Uᵀ
-    M = Hcc - to_cam(D_e)
+    # exact block-Jacobi preconditioner of S: U·G·Uᵀ per edge
+    D = []
+    for U, G, _, lay, _ in local:
+        T_e = torch.sum(U[:, :, :, None] * G[lay.ptsi][:, None, :, :], 2)
+        D.append(lay.to_cam(torch.sum(T_e[:, :, None, :] * U[:, None, :, :],
+                                      -1)))
+    M = Hcc - mesh.psum(D)
     M = torch.where(cam_free[:, None, None], M, eye6.expand(C, 6, 6))
     Minv = _inv6x6(M)
 
     def prec(r):
         return torch.sum(Minv * r[:, None, :], -1)
 
-    rhs = proj(bc - W_apply(torch.sum(G * bp[:, None, :], -1)))
+    rhs = proj(bc - W_apply([torch.sum(G * bp[:, None, :], -1)
+                             for _, G, bp, _, _ in local]))
 
     # PCG with a fixed trip count; the updates stop once converged
-    x = torch.zeros((C, 6), dtype=dtype, device=dev)
+    x = torch.zeros((C, 6), dtype=dtype, device=d0)
     r = rhs
     p = prec(r)
     rz = torch.sum(r * p)
@@ -127,10 +168,12 @@ def _implicit_schur_step(cam_R, cam_t, points, edge_sets, intr, use_huber,
         p = torch.where(live, z + beta * p, p)
         rz = torch.where(live, rz_new, rz)
     dxc = -x
-    tmp = bp + WT_apply(dxc)
-    dxp = -torch.sum(G * tmp[:, None, :], -1)
-    dxp = torch.where(pt_free[:, None], dxp, 0.0)
-    return dxc, dxp, cost0
+    dxps = []
+    for s, ((_, G, bp, _, pf), xs) in enumerate(zip(local,
+                                                    mesh.broadcast(dxc))):
+        dxp = -torch.sum(G * (bp + WT_apply(s, xs))[:, None, :], -1)
+        dxps.append(torch.where(pf[:, None], dxp, 0.0))
+    return dxc, dxps, mesh.psum(costs)
 
 
 def _inv6x6(A):
@@ -148,6 +191,77 @@ def _inv6x6(A):
     B12 = -(T @ Si)
     return torch.cat([torch.cat([B11, B12], -1), torch.cat([B21, Si], -1)],
                      -2)
+
+
+def solve_global(mesh: Mesh, cam_R, cam_t, cam_fixed, cam_valid, points,
+                 pt_valid, shard_sets, intr, iters_phase1: int = 5,
+                 iters_phase2: int = 10, reclassify: bool = True,
+                 cg_iters: int = 48):
+    """The LM protocol of `bundle_adjust_large` over the map blocks of
+    `mesh`: cameras on its first device; `points`, `pt_valid` and
+    `shard_sets` (one [(kind, EdgeSet or None)] with LOCAL point indices a
+    shard) lists with one entry per local shard, on its device. Two Huber
+    phases, chi² re-classification between them, the final masks against
+    the original edge sets. The LM gate stays on the device: a step's
+    finiteness is a count summed over the mesh, so every shard takes the
+    same decision. Returns (cam_R, cam_t, [points], [[mask or None]], the
+    accepted cost)."""
+    C = cam_R.shape[0]
+    dtype, d0 = cam_R.dtype, cam_R.device
+    lays = [_shard_layout(s, C, X.shape[0])
+            for s, X in zip(shard_sets, points)]
+    # a point is free when valid and referenced by a valid edge
+    pt_free = []
+    for s, pv, lay in zip(shard_sets, pt_valid, lays):
+        valid = torch.cat([es.valid for _, es in s if es is not None])
+        pt_free.append(pv & (lay.to_pt(valid.to(dtype)) > 0))
+    cam_free = cam_valid & ~cam_fixed
+
+    def phase(state, sets, n_iters):
+        cam_R, cam_t, points = state
+        lam = torch.tensor(1e-4, dtype=dtype, device=d0)
+        cost = torch.zeros((), dtype=dtype, device=d0)
+        for _ in range(n_iters):
+            dxc, dxps, cost0 = _implicit_schur_step(
+                mesh, cam_R, cam_t, cam_free, points, pt_free, sets, lays,
+                intr, lam, cg_iters)
+            Rn, tn = lie.se3_update_left(cam_R, cam_t, dxc)
+            pns = [X + dp for X, dp in zip(points, dxps)]
+            cost1 = mesh.psum([
+                _cost_only(R, t, X, s, intr, True) for R, t, X, s in zip(
+                    mesh.broadcast(Rn), mesh.broadcast(tn), pns, sets)])
+            # gate on the STEP's finiteness too: a NaN pose fails the z>0
+            # depth check and silently drops its edges from cost1
+            bad_p = mesh.psum([(~torch.isfinite(dp)).sum() for dp in dxps])
+            ok = ((cost1 < cost0) & torch.isfinite(cost1)
+                  & torch.isfinite(dxc).all() & (bad_p == 0))
+            cam_R = torch.where(ok, Rn, cam_R)
+            cam_t = torch.where(ok, tn, cam_t)
+            points = [torch.where(o, pn, X) for o, pn, X in
+                      zip(mesh.broadcast(ok), pns, points)]
+            lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0),
+                              1e-9, 1e8)
+            # the ACCEPTED state's cost
+            cost = torch.where(ok, cost1, cost0)
+        return (cam_R, cam_t, points), cost
+
+    def masks(state, sets):
+        R, t, pts = state
+        return [[None if es is None else ba._classify(kind, Rs, ts, X, es,
+                                                      intr)
+                 for kind, es in s]
+                for Rs, ts, X, s in zip(mesh.broadcast(R), mesh.broadcast(t),
+                                        pts, sets)]
+
+    state = (cam_R, cam_t, list(points))
+    state, _ = phase(state, shard_sets, iters_phase1)
+    sets = shard_sets
+    if reclassify:
+        sets = [[(kind, None if es is None else es._replace(valid=m))
+                 for (kind, es), m in zip(s, ms)]
+                for s, ms in zip(shard_sets, masks(state, shard_sets))]
+    state, cost = phase(state, sets, iters_phase2)
+    return (*state, masks(state, shard_sets), cost)
 
 
 def bundle_adjust_large(
@@ -172,7 +286,8 @@ def bundle_adjust_large(
     device=None,
 ) -> BAResult:
     """`ba.bundle_adjust` with O(E) memory, on `device` (`cuda` unless
-    given): the same LM protocol, the inner solve implicit-Schur PCG."""
+    given): the same LM protocol, the inner solve implicit-Schur PCG; the
+    one-shard case of `solve_global`."""
     dev = resolve_device(device)
 
     def on(x, dtype):
@@ -182,64 +297,15 @@ def bundle_adjust_large(
                             for x in (cam_R, cam_t, points))
     cam_fixed, cam_valid, point_valid = (
         on(x, torch.bool) for x in (cam_fixed, cam_valid, point_valid))
-    mono, stereo, bird = (ba._edges_on(es, dev) for es in (mono, stereo, bird))
-    C = cam_R.shape[0]
-    P = points.shape[0]
-    dtype = cam_R.dtype
-    intr = (fx, fy, cx, cy, bf)
-    cam_free = cam_valid & ~cam_fixed
-    n_refs = torch.zeros((P,), dtype=torch.int32, device=dev)
-    for es in (mono, stereo, bird):
-        if es is not None:
-            n_refs.index_add_(0, es.pt, es.valid.to(torch.int32))
-    pt_free = point_valid & (n_refs > 0)
-
-    msets = [("mono", mono), ("stereo", stereo), ("bird", bird)]
-    present = [es for _, es in msets if es is not None]
-    if not present:
+    msets = [(kind, ba._edges_on(es, dev)) for kind, es in
+             (("mono", mono), ("stereo", stereo), ("bird", bird))]
+    if all(es is None for _, es in msets):
         raise ValueError("no edge sets")
-    cams = torch.cat([es.cam for es in present])
-    ptsi = torch.cat([es.pt for es in present])
-    # the edges stay fixed across every LM and CG iteration
-    to_cam, to_pt = SegmentSum(cams, C), SegmentSum(ptsi, P)
-
-    def run_phase(state, n_iters, use_huber, sets):
-        cam_R, cam_t, points = state
-        lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-        cost = torch.zeros((), dtype=dtype, device=dev)
-        for _ in range(n_iters):
-            dxc, dxp, cost0 = _implicit_schur_step(
-                cam_R, cam_t, points, sets, intr, use_huber, lam, cam_free,
-                pt_free, cams, ptsi, to_cam, to_pt, cg_iters)
-            Rn, tn = lie.se3_update_left(cam_R, cam_t, dxc)
-            pn = points + dxp
-            cost1 = _cost_only(Rn, tn, pn, sets, intr, use_huber)
-            # gate on the STEP's finiteness too: a NaN pose fails the z>0
-            # depth check and silently drops its edges from cost1
-            ok = ((cost1 < cost0) & torch.isfinite(cost1)
-                  & torch.isfinite(dxc).all() & torch.isfinite(dxp).all())
-            cam_R = torch.where(ok, Rn, cam_R)
-            cam_t = torch.where(ok, tn, cam_t)
-            points = torch.where(ok, pn, points)
-            lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0),
-                              1e-9, 1e8)
-            # the ACCEPTED state's cost
-            cost = torch.where(ok, cost1, cost0)
-        return (cam_R, cam_t, points), cost
-
-    def masks(state, sets):
-        return [None if es is None else ba._classify(kind, *state, es, intr)
-                for kind, es in sets]
-
-    state = (cam_R, cam_t, points)
-    state, _ = run_phase(state, iters_phase1, True, msets)
-    if reclassify:
-        msets = [(kind, None if es is None else es._replace(valid=m))
-                 for (kind, es), m in zip(msets, masks(state, msets))]
-    state, cost = run_phase(state, iters_phase2, True, msets)
-    m_mono, m_stereo, m_bird = masks(
-        state, [("mono", mono), ("stereo", stereo), ("bird", bird)])
-    cam_R, cam_t, points = state
+    cam_R, cam_t, (points,), ((m_mono, m_stereo, m_bird),), cost = \
+        solve_global(Mesh([dev]), cam_R, cam_t, cam_fixed, cam_valid,
+                     [points], [point_valid], [msets],
+                     (fx, fy, cx, cy, bf), iters_phase1, iters_phase2,
+                     reclassify, cg_iters)
     empty = torch.zeros((0,), dtype=torch.bool, device=dev)
     return BAResult(
         cam_R, cam_t, points,

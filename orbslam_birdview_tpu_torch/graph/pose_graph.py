@@ -8,6 +8,9 @@ solvers of the same normal equations:
 - `optimize_sim3_graph`: the (7K × 7K) system assembled by block sums and
   solved densely, for small graphs;
 - `optimize_sim3_graph_pcg`: matrix-free, H·v edge-wise, block-Jacobi PCG;
+  both are the one-shard case of `solve_dense` / `solve_pcg`, which sum
+  the shards' contributions over a `parallel.runtime.Mesh`
+  (`parallel/sharded_pose_graph.py` gives them several shards);
 - `optimize_sim3_graph_banded`: exact O(K) steps for a time-ordered graph,
   block-Thomas over supernodes of g vertices plus Woodbury for the few
   long-range edges.
@@ -22,6 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..core import lie
+from ..parallel.runtime import Mesh
 from . import residuals
 from .segsum import SegmentSum
 
@@ -108,6 +112,23 @@ def _lm_gate(ok, R, t, s, Rn, tn, sn, lam):
             torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-10, 1e8))
 
 
+def _shard(e_i, e_j, mR, mt, ms, e_w, e_valid):
+    """One shard's edges as the solvers take them: (e_i, e_j, mR, mt, ms,
+    w) with w the weight, zero on invalid edges."""
+    return e_i, e_j, mR, mt, ms, e_w * e_valid.to(e_w.dtype)
+
+
+def _cost_fn(mesh, shards):
+    """cost(R, t, s) over every shard's edges, summed over the mesh."""
+    def cost(R, t, s):
+        return mesh.psum([
+            _cost(_edge_residuals(Rs, ts, ss, ei, ej, a, b, c), w)
+            for (ei, ej, a, b, c, w), Rs, ts, ss in zip(
+                shards, mesh.broadcast(R), mesh.broadcast(t),
+                mesh.broadcast(s))])
+    return cost
+
+
 def optimize_sim3_graph(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w, e_valid,
                         n_iters: int = 20, device=None):
     """Dense solver. R (K,3,3), t (K,3), s (K,) vertex Sim3 (world→kf);
@@ -118,32 +139,50 @@ def optimize_sim3_graph(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w, e_valid,
     (dev, R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w,
      e_valid) = _prepare(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w, e_valid,
                          device)
+    return solve_dense(Mesh([dev]), R, t, s, fixed,
+                       [_shard(e_i, e_j, mR, mt, ms, e_w, e_valid)], n_iters)
+
+
+def solve_dense(mesh: Mesh, R, t, s, fixed, shards, n_iters: int):
+    """`optimize_sim3_graph` over the edge `shards` of `mesh` (one
+    (e_i, e_j, mR, mt, ms, w) a local shard, on its device; the vertices
+    on the first device): each shard assembles its edges' (7K × 7K) H and
+    b, the sums over the mesh are solved once on the first device. One
+    shard is the one-device solver."""
     K = R.shape[0]
-    dtype = R.dtype
+    dtype, dev = R.dtype, R.device
     t, s, ungauge = gauge_normalize(R, t, s)
-    w = e_w * e_valid.to(dtype)
     # the four (K,7,K,7) blocks each edge touches, summed in one pass over
     # the flat (row vertex, column vertex) index; b over [e_i; e_j]
-    to_H = SegmentSum(torch.cat([e_i * K + e_i, e_j * K + e_j,
-                                 e_i * K + e_j, e_j * K + e_i]), K * K)
-    to_b = SegmentSum(torch.cat([e_i, e_j]), K)
+    to_H = [SegmentSum(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej,
+                                  ej * K + ei]), K * K)
+            for ei, ej, *_ in shards]
+    to_b = [SegmentSum(torch.cat([ei, ej]), K) for ei, ej, *_ in shards]
     free = torch.repeat_interleave(~fixed, 7)
     eye = torch.eye(7 * K, dtype=dtype, device=dev)
     pin = torch.diag(torch.where(free, 0.0, 1.0))
+    cost_of = _cost_fn(mesh, shards)
 
     def assemble(R, t, s):
-        r, Ji, Jj = _edge_terms(R, t, s, e_i, e_j, mR, mt, ms)
-        JiW = Ji * w[:, None, None]
-        JjW = Jj * w[:, None, None]
-        blocks = torch.cat([
-            torch.einsum("eri,erj->eij", JiW, Ji),
-            torch.einsum("eri,erj->eij", JjW, Jj),
-            torch.einsum("eri,erj->eij", JiW, Jj),
-            torch.einsum("eri,erj->eij", JjW, Ji)])
-        H = to_H(blocks).view(K, K, 7, 7).permute(0, 2, 1, 3)
-        b = to_b(torch.cat([torch.einsum("eri,er->ei", JiW, r),
-                            torch.einsum("eri,er->ei", JjW, r)]))
-        return H.reshape(7 * K, 7 * K), b.reshape(-1), _cost(r, w)
+        H, b, c = [], [], []
+        for (ei, ej, mR, mt, ms, w), Rs, ts, ss, tH, tb in zip(
+                shards, mesh.broadcast(R), mesh.broadcast(t),
+                mesh.broadcast(s), to_H, to_b):
+            r, Ji, Jj = _edge_terms(Rs, ts, ss, ei, ej, mR, mt, ms)
+            JiW = Ji * w[:, None, None]
+            JjW = Jj * w[:, None, None]
+            blocks = torch.cat([
+                torch.einsum("eri,erj->eij", JiW, Ji),
+                torch.einsum("eri,erj->eij", JjW, Jj),
+                torch.einsum("eri,erj->eij", JiW, Jj),
+                torch.einsum("eri,erj->eij", JjW, Ji)])
+            H.append(tH(blocks).view(K, K, 7, 7).permute(0, 2, 1, 3)
+                     .reshape(7 * K, 7 * K))
+            b.append(tb(torch.cat([torch.einsum("eri,er->ei", JiW, r),
+                                   torch.einsum("eri,er->ei", JjW, r)]))
+                     .reshape(-1))
+            c.append(_cost(r, w))
+        return mesh.psum(H), mesh.psum(b), mesh.psum(c)
 
     lam = torch.tensor(1e-6, dtype=dtype, device=dev)
     cost1 = first = torch.zeros((), dtype=dtype, device=dev)
@@ -156,7 +195,7 @@ def optimize_sim3_graph(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w, e_valid,
         b = torch.where(free, b, 0.0)
         dx = -torch.linalg.solve_ex(Hd, b).result.reshape(K, 7)
         Rn, tn, sn = sim3_update_left(R, t, s, dx)
-        cost1 = _cost(_edge_residuals(Rn, tn, sn, e_i, e_j, mR, mt, ms), w)
+        cost1 = cost_of(Rn, tn, sn)
         ok = (cost1 < cost0) & torch.isfinite(cost1)
         R, t, s, lam = _lm_gate(ok, R, t, s, Rn, tn, sn, lam)
     R, t, s = ungauge(R, t, s)
@@ -175,32 +214,47 @@ def optimize_sim3_graph_pcg(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w,
     (dev, R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w,
      e_valid) = _prepare(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w, e_valid,
                          device)
+    return solve_pcg(Mesh([dev]), R, t, s, fixed,
+                     [_shard(e_i, e_j, mR, mt, ms, e_w, e_valid)], n_iters,
+                     cg_iters)
+
+
+def solve_pcg(mesh: Mesh, R, t, s, fixed, shards, n_iters: int,
+              cg_iters: int):
+    """`optimize_sim3_graph_pcg` over the edge `shards` of `mesh` (as
+    `solve_dense`): only (K,7) vectors and the (K,7,7) block-Jacobi blocks
+    are summed over the mesh, one (K,7) sum per CG step. One shard is the
+    one-device solver."""
     K = R.shape[0]
-    dtype = R.dtype
+    dtype, dev = R.dtype, R.device
     t, s, ungauge = gauge_normalize(R, t, s)
     free_v = (~fixed).to(dtype)[:, None]              # (K,1)
-    w = e_w * e_valid.to(dtype)
-    to_v = SegmentSum(torch.cat([e_i, e_j]), K)
+    to_v = [SegmentSum(torch.cat([ei, ej]), K) for ei, ej, *_ in shards]
     scales = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=dtype, device=dev)
-
-    def cost_at(sc, R, t, s, dx):
-        Rn, tn, sn = sim3_update_left(R, t, s, sc * dx)
-        return _cost(_edge_residuals(Rn, tn, sn, e_i, e_j, mR, mt, ms), w)
+    cost_of = _cost_fn(mesh, shards)
 
     lam = torch.tensor(1e-6, dtype=dtype, device=dev)
     last = first = torch.zeros((), dtype=dtype, device=dev)
     for it in range(n_iters):
-        r, Ji, Jj = _edge_terms(R, t, s, e_i, e_j, mR, mt, ms)
-        cost0 = _cost(r, w)
+        terms, b, D, c = [], [], [], []
+        for (ei, ej, mR, mt, ms, w), Rs, ts, ss, tv in zip(
+                shards, mesh.broadcast(R), mesh.broadcast(t),
+                mesh.broadcast(s), to_v):
+            r, Ji, Jj = _edge_terms(Rs, ts, ss, ei, ej, mR, mt, ms)
+            JiW = Ji * w[:, None, None]
+            JjW = Jj * w[:, None, None]
+            terms.append((Ji, Jj, JiW, JjW))
+            b.append(tv(torch.cat([torch.einsum("eri,er->ei", JiW, r),
+                                   torch.einsum("eri,er->ei", JjW, r)])))
+            D.append(tv(torch.cat([torch.einsum("eri,erj->eij", JiW, Ji),
+                                   torch.einsum("eri,erj->eij", JjW, Jj)])))
+            c.append(_cost(r, w))
+        cost0 = mesh.psum(c)
         if it == 0:
             first = cost0
-        JiW = Ji * w[:, None, None]
-        JjW = Jj * w[:, None, None]
-        b = -to_v(torch.cat([torch.einsum("eri,er->ei", JiW, r),
-                             torch.einsum("eri,er->ei", JjW, r)])) * free_v
+        b = -mesh.psum(b) * free_v
         # block-Jacobi preconditioner with Marquardt damping on its diagonal
-        D = to_v(torch.cat([torch.einsum("eri,erj->eij", JiW, Ji),
-                            torch.einsum("eri,erj->eij", JjW, Jj)]))
+        D = mesh.psum(D)
         dd = torch.diagonal(D, dim1=-2, dim2=-1)
         # the blocks stay fixed through the CG loop: invert them once
         Dinv = torch.linalg.inv_ex(
@@ -210,11 +264,14 @@ def optimize_sim3_graph_pcg(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w,
             return torch.sum(Dinv * v[:, None, :], -1) * free_v
 
         def Hmul(v):
-            u = (torch.einsum("erc,ec->er", Ji, v[e_i])
-                 + torch.einsum("erc,ec->er", Jj, v[e_j]))
-            y = to_v(torch.cat([torch.einsum("erc,er->ec", JiW, u),
-                                torch.einsum("erc,er->ec", JjW, u)]))
-            return (y + lam * dd * v) * free_v
+            ys = []
+            for (Ji, Jj, JiW, JjW), (ei, ej, *_), tv, vs in zip(
+                    terms, shards, to_v, mesh.broadcast(v)):
+                u = (torch.einsum("erc,ec->er", Ji, vs[ei])
+                     + torch.einsum("erc,ec->er", Jj, vs[ej]))
+                ys.append(tv(torch.cat([torch.einsum("erc,er->ec", JiW, u),
+                                        torch.einsum("erc,er->ec", JjW, u)])))
+            return (mesh.psum(ys) + lam * dd * v) * free_v
 
         x = torch.zeros((K, 7), dtype=dtype, device=dev)
         rcg = b
@@ -238,7 +295,8 @@ def optimize_sim3_graph_pcg(R, t, s, fixed, e_i, e_j, mR, mt, ms, e_w,
             p = z + beta * p
             rz = rz_new
         dx = x_best
-        trial = torch.stack([cost_at(sc, R, t, s, dx) for sc in scales])
+        trial = torch.stack([cost_of(*sim3_update_left(R, t, s, sc * dx))
+                             for sc in scales])
         trial = torch.where(torch.isfinite(trial), trial, torch.inf)
         k = torch.argmin(trial)
         cost1 = trial[k]

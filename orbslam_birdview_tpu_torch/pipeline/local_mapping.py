@@ -14,7 +14,8 @@ frames.
 - the full-map BA that a loop correction dispatches (`global_ba`) lands
   `GBA_LAG_FRAMES` frames later (`finalize_gba`), keyframes and points
   made meanwhile corrected through the spanning tree; a second round is
-  chained on landing;
+  chained on landing. On a mesh of more than one shard it is the sharded
+  solve of `parallel/sharded_ba.py`;
 - `_gather_ba_problem` extracts a padded BA problem from the map store;
   `initial_global_ba` is the two-keyframe BA that ends initialization.
 
@@ -35,6 +36,8 @@ from ..api.config import SlamConfig
 from ..core.camera import camera_to_base_extrinsics
 from ..graph import ba, ba_large
 from ..mapping.mapstore import MapStore
+from ..parallel import runtime
+from ..parallel import sharded_ba as sba
 from ..utils.async_fetch import BackgroundFetch
 from ..utils.profiling import GLOBAL_TIMER
 from . import device_ops
@@ -68,10 +71,18 @@ def pow2_bucket(n, lo, hi):
 
 
 class LocalMapper:
-    def __init__(self, cfg: SlamConfig, store: MapStore, device=None):
+    def __init__(self, cfg: SlamConfig, store: MapStore, device=None,
+                 mesh: runtime.Mesh = None):
         self.cfg = cfg
         self.store = store
         self.device = resolve_device(device)
+        # the shards of the full-map BA and the essential graph: the one
+        # device unless the caller gives a mesh of more shards
+        self.mesh = (mesh if mesh is not None
+                     else runtime.Mesh([self.device]))
+        if self.mesh.world > 1:
+            raise ValueError("the mapper's mesh is one process's: it lands "
+                             "every point of the full-map BA")
         self.recent_mp: list[tuple[int, int]] = []  # (mp_id, birth kf index)
         self.level_sigma2 = np.array(
             [cfg.orb.scale_factor ** (2 * l) for l in range(cfg.orb.n_levels)],
@@ -908,15 +919,18 @@ class LocalMapper:
     def global_ba(self, iters=(5, 5), async_dispatch: bool = False):
         """Full-map BA: ALL keyframes and landmarks, only keyframe 0 fixed
         (`GlobalBundleAdjustemntWithBirdview`). Cameras, points and each
-        edge type are bucketed to powers of two. The solver: the dense-W
-        `ba.bundle_adjust` while its (C,6,P,3) coupling tensor fits
-        DENSE_W_MAX_BYTES, else the matrix-free `ba_large`.
+        edge type are bucketed to powers of two. The solver: on a mesh of
+        more than one shard, `parallel/sharded_ba.sharded_global_ba` (the
+        points and edges partitioned into the mesh's blocks, the matrix-free
+        step with 48 CG steps, as the JAX package's `jax.device_count() > 1`
+        branch); on one device the dense-W `ba.bundle_adjust` while its
+        (C,6,P,3) coupling tensor fits DENSE_W_MAX_BYTES, else the
+        matrix-free `ba_large`.
 
         With `async_dispatch` the solve is queued and `finalize_gba` lands
         it at its tick; tracking frames run meanwhile, and keyframes and
         points created meanwhile are corrected by spanning-tree propagation
-        at landing. (The sharded multi-device solve is ROADMAP Queue 1 item
-        14; this is the one-device path whatever the device count.)"""
+        at landing."""
         store = self.store
         cam = self.cfg.camera
         valid = store.valid_kf_ids()
@@ -944,22 +958,30 @@ class LocalMapper:
         fixed_np = np.ones(C, bool)
         fixed_np[: len(window)] = False
         fixed_np[: len(all_kfs)][all_kfs == 0] = True
-        dense_w_bytes = C * 6 * point_cap * 3 * 4
-        large = dense_w_bytes > DENSE_W_MAX_BYTES
-        solver = ba_large.bundle_adjust_large if large else ba.bundle_adjust
         with GLOBAL_TIMER.stage("map.gba_dispatch"):
-            res = solver(
-                cam_R, cam_t, torch.as_tensor(fixed_np, device=self.device),
-                cam_valid, points, pvalid, mono_es, stereo_es, bird_es,
-                cam.fx, cam.fy, cam.cx, cam.cy, bf=cam.bf,
-                iters_phase1=iters[0], iters_phase2=iters[1],
-                device=self.device)
+            if self.mesh.n_shards > 1:
+                res = self._sharded_global_ba(
+                    cam_R, cam_t, fixed_np, cam_valid, points, pvalid,
+                    mono_es, stereo_es, bird_es, iters)
+                solver = "sharded-implicit"
+            else:
+                dense_w_bytes = C * 6 * point_cap * 3 * 4
+                large = dense_w_bytes > DENSE_W_MAX_BYTES
+                solver = "large" if large else "dense-W"
+                res = (ba_large.bundle_adjust_large if large
+                       else ba.bundle_adjust)(
+                    cam_R, cam_t,
+                    torch.as_tensor(fixed_np, device=self.device),
+                    cam_valid, points, pvalid, mono_es, stereo_es, bird_es,
+                    cam.fx, cam.fy, cam.cx, cam.cy, bf=cam.bf,
+                    iters_phase1=iters[0], iters_phase2=iters[1],
+                    device=self.device)
         self.last_gba = dict(
             C=C, P=int(points.shape[0]), n_kf=len(window),
             n_points=n_mp + n_bmp,
             edges=int(sum(int(es.cam.shape[0]) for es in
                           (mono_es, stereo_es, bird_es) if es is not None)),
-            solver="large" if large else "dense-W")
+            solver=solver, shards=self.mesh.n_shards)
         if self._gba_pending is not None:
             self.stats["gba_dropped"] += 1
         self.stats["gba_dispatched"] += 1
@@ -971,6 +993,31 @@ class LocalMapper:
         self._gba_tick = self._frame_tick
         if not async_dispatch:
             self.finalize_gba(block=True)
+
+    def _sharded_global_ba(self, cam_R, cam_t, fixed_np, cam_valid, points,
+                           pvalid, mono_es, stereo_es, bird_es, iters):
+        """The full-map BA over the mapper's mesh: the points padded and
+        split into contiguous blocks, each edge set regrouped by block
+        (`partition_gba_problem`), then `sharded_global_ba` with 48 CG
+        steps. Its points come back in the partition's global order (the
+        blocks in order, padding at the end), so they land as a one-device
+        result's do. Returns a `BAResult` (masks in partition order)."""
+        cam = self.cfg.camera
+        mesh = self.mesh
+        pts_p, ptv_p, part, _ = sba.partition_gba_problem(
+            mesh.n_shards, points, pvalid,
+            [("mono", mono_es), ("stereo", stereo_es), ("bird", bird_es)])
+        cR, ct, cf, cv, pts, ptv, edges = sba.place_gba_problem(
+            mesh, cam_R, cam_t, fixed_np, cam_valid, pts_p, ptv_p, part)
+        R, t, X, masks, cost = sba.sharded_global_ba(
+            mesh, cR, ct, cf, cv, pts, ptv, edges["mono"][0],
+            edges["stereo"][0], edges["bird"][0], cam.fx, cam.fy, cam.cx,
+            cam.cy, bf=cam.bf, iters_phase1=iters[0], iters_phase2=iters[1],
+            cg_iters=48)
+        empty = torch.zeros((0,), dtype=torch.bool, device=X.device)
+        return ba.BAResult(R, t, X, masks.get("mono", empty),
+                           masks.get("stereo", empty),
+                           masks.get("bird", empty), cost)
 
     def finalize_gba(self, block: bool = False,
                      start_fetch_only: bool = False) -> bool:

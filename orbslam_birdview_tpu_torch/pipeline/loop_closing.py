@@ -8,7 +8,8 @@ BA — the reference's `LoopClosing` as a pipeline stage of local mapping.
   projection gate;
 - correction: the corrected Sim3 over the covisible group, landmark
   correction, loop-point fusion, the Sim3 essential graph
-  (`graph/pose_graph.py`), then two chained rounds of the full-map BA;
+  (`graph/pose_graph.py`, or `parallel/sharded_pose_graph.py` on a mesh of
+  more than one shard), then two chained rounds of the full-map BA;
 - the vocabulary: the packaged one, or (without one) a 10⁴-word
   vocabulary trained from the map's own descriptors on a worker thread,
   landing at a fixed keyframe tick.
@@ -34,6 +35,7 @@ from ..graph.sim3_opt import optimize_sim3_two_frame
 from ..mapping import vocab as vocab_mod
 from ..mapping.kfdb import KeyFrameDatabase
 from ..mapping.mapstore import MapStore
+from ..parallel import sharded_pose_graph as spg
 from ..solvers import sim3 as sim3_mod
 from . import device_ops
 
@@ -434,15 +436,54 @@ class LoopCloser:
         ms = np.append(np.ones(len(e_a), np.float32), sl).astype(np.float32)
         return e_i, e_j, mR, mt, ms, np.ones(len(e_i), np.float32)
 
+    def _one_device_graph(self, vR, vt, vs, cand_slot, e_i, e_j, mR, mt,
+                          ms, ew, rec):
+        """The one-device essential graph on power-of-two buckets: the
+        dense solver up to 256 vertices, the banded one above."""
+        K, E = len(vR), len(e_i)
+        Kp = _b2(K)
+        vR_p = np.tile(np.eye(3, dtype=np.float32), (Kp, 1, 1))
+        vR_p[:K] = vR
+        vt_p = np.zeros((Kp, 3), np.float32)
+        vt_p[:K] = vt
+        vs_p = np.ones(Kp, np.float32)
+        vs_p[:K] = vs
+        fx_p = np.ones(Kp, bool)
+        fx_p[:K] = False
+        fx_p[cand_slot] = True
+        if Kp <= 256:
+            Ep = _b2(E)
+
+            def padE(x, fill):
+                out = np.full((Ep,) + x.shape[1:], fill, x.dtype)
+                out[:E] = x
+                return out
+
+            mR_p = np.tile(np.eye(3, dtype=np.float32), (Ep, 1, 1))
+            mR_p[:E] = mR
+            args = (vR_p, vt_p, vs_p, fx_p, padE(e_i, 0), padE(e_j, 0),
+                    mR_p, padE(mt, 0.0), padE(ms, 1.0), padE(ew, 0.0),
+                    padE(np.ones(E, bool), False))
+            rec["solver"] = "dense"
+            return pose_graph.optimize_sim3_graph(*args, n_iters=20,
+                                                  device=self.device)
+        band_grp, long_grp = self._banded_groups(e_i, e_j, mR, mt, ms, ew)
+        rec["solver"] = "banded"
+        return pose_graph.optimize_sim3_graph_banded(
+            vR_p, vt_p, vs_p, fx_p, *band_grp, *long_grp, g=8, n_iters=20,
+            device=self.device)
+
     def _optimize_essential_graph(self, kf, cand, S, corrected, old_poses,
                                   rec):
         """Optimize the Sim3 essential graph and move every keyframe and
-        landmark with it. One-device path whatever the device count (the
-        sharded solve is ROADMAP Queue 1 item 14): the dense solver up to
-        256 vertices, the banded one above, on vertex and edge axes padded
-        to power-of-two buckets (fixed identity vertices, invalid edges)."""
+        landmark with it. On a mapper's mesh of more than one shard, the JAX
+        package's `jax.device_count() > 1` branch: the edges split over the
+        shards (`shard_edges`, no power-of-two padding), the dense sharded
+        solver up to 256 vertices, the sharded PCG above. On one device the
+        dense solver up to 256 vertices, the banded one above, on vertex
+        and edge axes padded to power-of-two buckets (fixed identity
+        vertices, invalid edges)."""
         store = self.store
-        dev = self.device
         valid = store.valid_kf_ids()
         K = len(valid)
         slot_arr = np.full(store.max_kf, -1, np.int64)
@@ -458,41 +499,22 @@ class LoopCloser:
         e_i, e_j, mR, mt, ms, ew = self._essential_edges(
             kf, cand, S, old_poses, valid, slot_arr)
         E = len(e_i)
-        Kp = _b2(K)
-        vR_p = np.tile(np.eye(3, dtype=np.float32), (Kp, 1, 1))
-        vR_p[:K] = vR
-        vt_p = np.zeros((Kp, 3), np.float32)
-        vt_p[:K] = vt
-        vs_p = np.ones(Kp, np.float32)
-        vs_p[:K] = vs
-        fx_p = np.ones(Kp, bool)
-        fx_p[:K] = False
-        fx_p[slot_arr[cand]] = True
         rec.update(K=K, E=E)
-        if Kp <= 256:
-            Ep = _b2(E)
-
-            def padE(x, fill):
-                out = np.full((Ep,) + x.shape[1:], fill, x.dtype)
-                out[:E] = x
-                return out
-
-            mR_p = np.tile(np.eye(3, dtype=np.float32), (Ep, 1, 1))
-            mR_p[:E] = mR
-            args = (vR_p, vt_p, vs_p, fx_p, padE(e_i, 0), padE(e_j, 0),
-                    mR_p, padE(mt, 0.0), padE(ms, 1.0), padE(ew, 0.0),
-                    padE(np.ones(E, bool), False))
-            rec["solver"] = "dense"
-            R_out, t_out, s_out, cost, cost0 = pose_graph.optimize_sim3_graph(
-                *args, n_iters=20, device=dev)
+        mesh = self.mapper.mesh
+        if mesh.n_shards > 1:
+            fixed = np.zeros(K, bool)
+            fixed[slot_arr[cand]] = True
+            sharded = spg.shard_edges(mesh, e_i, e_j, mR, mt, ms, ew,
+                                      np.ones(E, bool))
+            dense = K <= 256
+            rec["solver"] = "sharded-dense" if dense else "sharded-pcg"
+            solver = (spg.sharded_optimize_sim3_graph if dense
+                      else spg.sharded_optimize_sim3_graph_pcg)
+            R_out, t_out, s_out, cost, cost0 = solver(
+                mesh, vR, vt, vs, fixed, *sharded, n_iters=20)
         else:
-            band_grp, long_grp = self._banded_groups(e_i, e_j, mR, mt, ms,
-                                                     ew)
-            rec["solver"] = "banded"
-            R_out, t_out, s_out, cost, cost0 = \
-                pose_graph.optimize_sim3_graph_banded(
-                    vR_p, vt_p, vs_p, fx_p, *band_grp, *long_grp, g=8,
-                    n_iters=20, device=dev)
+            R_out, t_out, s_out, cost, cost0 = self._one_device_graph(
+                vR, vt, vs, slot_arr[cand], e_i, e_j, mR, mt, ms, ew, rec)
         flat = torch.cat([R_out[:K].reshape(-1), t_out[:K].reshape(-1),
                           s_out[:K], cost0.reshape(1),
                           cost.reshape(1)]).cpu().numpy()

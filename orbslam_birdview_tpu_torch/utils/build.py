@@ -1,7 +1,9 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes: CUDA sources
+(`.cu`) with nvcc, host C++ sources (`.cpp`) with the host compiler.
 
 Each library is compiled at first use into `build/torch_kernels/` at the
-root of the checkout (listed in .gitignore), under a name that carries a
+root of the checkout (listed in .gitignore; $ORBSLAM_TORCH_BUILD_DIR names
+another directory), under a name that carries a
 hash of its sources and flags, so an edited source is rebuilt and an
 unchanged one is reused. The sources have a plain C interface and include
 no PyTorch header, which keeps a build to seconds. Nothing here runs when
@@ -20,9 +22,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+BUILD_DIR = Path(os.environ.get("ORBSLAM_TORCH_BUILD_DIR")
+                 or PACKAGE_DIR.parent / "build" / "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 # name -> loaded library; filled by load_library, read by tests
 LOADED: dict[str, ctypes.CDLL] = {}
@@ -39,8 +43,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX, else c++ or g++ on the PATH."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(name) if name else None
+        if path is not None:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ / g++) found: the port's "
+                       "C++ sources are built on first use and need one")
+
+
+def _compiler(sources: list[Path]) -> tuple[list[str], tuple]:
+    """The compiler command and flags for `sources`: nvcc when any of them
+    is CUDA, the host C++ compiler otherwise."""
+    if any(src.suffix == ".cu" for src in sources):
+        return [find_nvcc()], NVCC_FLAGS
+    return [find_cxx()], CXX_FLAGS
+
+
+def _digest(sources: list[Path], flags: tuple) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -51,16 +73,18 @@ def build_library(name: str, sources: list[Path]) -> Path:
     """Compile `sources` into one shared library unless an identical build
     exists; returns its path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"lib{name}-{_digest(sources)}.so"
+    compiler, flags = _compiler(sources)
+    target = BUILD_DIR / f"lib{name}-{_digest(sources, flags)}.so"
     if target.exists():
         return target
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    cmd = [*compiler, *flags, "-o", tmp, *map(str, sources)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"{Path(compiler[0]).name} failed "
+                               f"({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, target)
     finally:

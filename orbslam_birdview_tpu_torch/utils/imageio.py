@@ -14,21 +14,26 @@ and flag, bit for bit:
     channel order for colour, palettes expanded;
 - PGM / PPM (P5 / P6, 8 and 16 bit), colour to gray as OpenCV's
   `cvtColor`: (4899·R + 9617·G + 1868·B + 8192) >> 14;
-- JPEG through the native loader's libjpeg (`native/libslamio.so`, which
-  matches OpenCV's JPEG decode), which decodes to gray: a gray read of any
-  JPEG, and any read of a one-component JPEG. A colour JPEG read in colour,
-  or any JPEG without that library, raises `UnsupportedImage` naming the
+  Interlaced (Adam7) files: the seven passes, each unfiltered on its own,
+  scattered into the image;
+- JPEG through the port's own decoder (`csrc/jpeg_decode.cpp`, built with
+  the host C++ compiler at first use): baseline, extended and progressive
+  Huffman, 8-bit, 1 or 3 components, libjpeg's islow IDCT, fancy
+  upsampling and fixed-point YCbCr tables, as OpenCV's libjpeg-turbo
+  decodes. Arithmetic-coded, lossless, hierarchical, 12-bit and
+  4-component (CMYK / YCCK) files raise `UnsupportedImage` naming the
   file.
 
 Where `cv2.imread` returns None, `imread` raises: FileNotFoundError for a
 missing file, ValueError for a file it cannot decode (a bad CRC, a
-truncated stream, an interlaced PNG, an unknown format).
+truncated stream, an unknown format).
 
 `imwrite` / `encode_png` write 8-bit gray, 8-bit colour (BGR input, as
 `cv2.imwrite` takes it) and 16-bit gray PNG.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
@@ -38,6 +43,7 @@ import numpy as np
 IMREAD_UNCHANGED = -1
 IMREAD_GRAYSCALE = 0
 IMREAD_COLOR = 1
+FLAGS_ALL = (IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -108,21 +114,46 @@ def decode_png(data: bytes):
     width, height, depth, ctype, _, _, interlace = ihdr
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"bad PNG colour type {ctype} / depth {depth}")
-    if interlace:
-        raise ValueError("interlaced PNG is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"bad PNG interlace method {interlace}")
     if ctype == 3 and plte is None:
         raise ValueError("palette PNG without PLTE")
     channels = _CHANNELS[ctype]
-    bits = depth * channels
-    bpp = max(1, bits // 8)                      # filter unit in bytes
-    row_bytes = (width * bits + 7) // 8
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG data: {e}") from None
-    if len(raw) < height * (row_bytes + 1):
+    if not interlace:
+        img, _ = _png_pass(raw, 0, width, height, depth, channels)
+        return img, depth, ctype, plte, trns
+    # Adam7: seven reduced images, each filtered on its own, then scattered
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((height, width, channels), dtype)
+    off = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        sub, off = _png_pass(raw, off, pw, ph, depth, channels)
+        img[y0::dy, x0::dx] = sub
+    return img, depth, ctype, plte, trns
+
+
+# (first column, first row, column step, row step) of the Adam7 passes
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_pass(raw, off, width, height, depth, channels):
+    """One image (or Adam7 pass) of `width` x `height` from the inflated
+    stream at byte `off`: its samples (H, W, C) and the offset after it."""
+    bits = depth * channels
+    bpp = max(1, bits // 8)                      # filter unit in bytes
+    row_bytes = (width * bits + 7) // 8
+    end = off + height * (row_bytes + 1)
+    if len(raw) < end:
         raise ValueError("truncated PNG data")
-    rows = np.frombuffer(raw, np.uint8, height * (row_bytes + 1)).reshape(
+    rows = np.frombuffer(raw, np.uint8, end - off, off).reshape(
         height, row_bytes + 1)
     ftype = rows[:, 0]
     if (ftype > 4).any():
@@ -139,7 +170,7 @@ def decode_png(data: bytes):
         shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
         vals = (pix[:, :, None] >> shifts) & ((1 << depth) - 1)
         img = vals.reshape(height, -1)[:, :width, None]
-    return img, depth, ctype, plte, trns
+    return img, end
 
 
 def unfilter(filtered: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
@@ -352,28 +383,62 @@ def jpeg_components(data: bytes) -> int:
     raise ValueError("JPEG without a frame header")
 
 
-def _read_jpeg(path, data, flags):
-    """A JPEG through the native library's libjpeg, which decodes to gray:
-    exact for a gray read, and for any read of a one-component file."""
-    components = jpeg_components(data)
-    if flags != IMREAD_GRAYSCALE and components != 1:
-        raise UnsupportedImage(
-            f"{path}: a colour JPEG read in colour is not supported (the "
-            "native libjpeg path decodes to gray only)")
-    from .native_loader import PrefetchLoader, native_available
+_JPEG_UNSUPPORTED = 2           # jpeg_decode.cpp's status codes: 1 corrupt
 
-    if not native_available():
-        raise UnsupportedImage(f"{path}: JPEG needs native/libslamio.so "
-                               "(build it with `make -C native`)")
-    loader = PrefetchLoader([path], n_threads=1, queue_cap=1)
+
+def _jpeg_library():
+    """The decoder of csrc/jpeg_decode.cpp, built at first use."""
+    from .build import load_library
+
+    lib = load_library("jpeg_decode", ["jpeg_decode.cpp"])
+    if not getattr(lib, "_typed", False):
+        buf, i32p = ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_info.argtypes = [buf, ctypes.c_long, i32p, i32p, i32p,
+                                  ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_decode.argtypes = [buf, ctypes.c_long, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_long,
+                                    ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_info.restype = lib.jpeg_decode.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def decode_jpeg(data: bytes, color: bool):
+    """A JPEG stream decoded as libjpeg does by default: (H, W) gray, or
+    (H, W, 3) BGR with `color`. Raises UnsupportedImage or ValueError with
+    the decoder's reason."""
+    lib = _jpeg_library()
+    err = ctypes.create_string_buffer(256)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+
+    def check(status):
+        if status == _JPEG_UNSUPPORTED:
+            raise UnsupportedImage(err.value.decode())
+        if status:
+            raise ValueError(f"corrupt JPEG: {err.value.decode()}")
+
+    check(lib.jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                        ctypes.byref(c), err, len(err)))
+    out = np.empty((h.value, w.value, 3) if color else (h.value, w.value),
+                   np.uint8)
+    check(lib.jpeg_decode(data, len(data), int(color),
+                          out.ctypes.data_as(ctypes.c_void_p), out.size, err,
+                          len(err)))
+    return out
+
+
+def _read_jpeg(path, data, flags):
+    """A JPEG through the port's decoder: gray for IMREAD_GRAYSCALE, BGR
+    for IMREAD_COLOR, and for IMREAD_UNCHANGED the file's own kind (gray
+    for one component), as cv2.imread returns them."""
+    if flags not in FLAGS_ALL:
+        raise ValueError(f"unsupported imread flags {flags}")
+    color = flags == IMREAD_COLOR or (
+        flags == IMREAD_UNCHANGED and jpeg_components(data) != 1)
     try:
-        gray = next(iter(loader)).astype(np.uint8)
-    except IOError as e:
-        raise ValueError(str(e)) from None
-    finally:
-        loader.close()
-    return np.repeat(gray[..., None], 3, -1) if flags == IMREAD_COLOR \
-        else gray
+        return decode_jpeg(data, color)
+    except UnsupportedImage as e:
+        raise UnsupportedImage(f"{path}: {e}") from None
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ import pytest
 
 from orbslam_birdview_tpu.cli import datasets as jdatasets
 from orbslam_birdview_tpu_torch.cli import datasets
-from orbslam_birdview_tpu_torch.utils import imageio, native_loader
+from orbslam_birdview_tpu_torch.utils import imageio
 
 REPO = Path(__file__).resolve().parents[1]
 MAP_TOL_PX = 1e-3
@@ -321,18 +321,18 @@ def test_fisheye_equals_jax(tmp_path, rng, front_mask):
     assert r.bird_mask[105, 230] == 0.0
 
 
-@pytest.mark.skipif(not native_loader.native_available(),
-                    reason="native/libslamio.so not built")
 def test_fisheye_jpeg_layout(tmp_path, rng):
     """The golden fixture's own `.jpg` names: the gray reads of the front
-    and BEV JPEGs equal the JAX loader's; the colour bird mask JPEG, which
-    the native libjpeg path cannot decode in colour, is refused with its
-    name (the JAX loader reads it through OpenCV)."""
+    and BEV JPEGs equal the JAX loader's, and so does every record of the
+    layout, the colour bird-mask JPEGs included (read in colour by the
+    port's decoder, through OpenCV by the JAX loader)."""
     write_fisheye(tmp_path, rng, "jpg")
     for name in ("0001.jpg", "0002.jpg"):
         for d in ("image", "birdview"):
             path = str(tmp_path / d / name)
             np.testing.assert_array_equal(
                 datasets._gray(path), jdatasets._gray(path))
-    with pytest.raises(imageio.UnsupportedImage, match="0001.jpg"):
-        list(datasets.load_fisheye_birdview(str(tmp_path)))
+    got = list(datasets.load_fisheye_birdview(str(tmp_path)))
+    assert_records_equal(
+        got, list(jdatasets.load_fisheye_birdview(str(tmp_path))))
+    assert len(got) == 2 and got[0].bird_mask.shape == (384, 384)

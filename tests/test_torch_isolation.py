@@ -73,6 +73,12 @@ MODULES = [
     "orbslam_birdview_tpu_torch.cli.eval_traj",
     "orbslam_birdview_tpu_torch.cli.run_synthetic",
     "orbslam_birdview_tpu_torch.cli.run_slam",
+    # the multi-device layer
+    "orbslam_birdview_tpu_torch.parallel",
+    "orbslam_birdview_tpu_torch.parallel.runtime",
+    "orbslam_birdview_tpu_torch.parallel.sharded_ba",
+    "orbslam_birdview_tpu_torch.parallel.sharded_pose_graph",
+    "orbslam_birdview_tpu_torch.parallel.dryrun",
     "chip_smoke",
 ]
 
@@ -88,22 +94,24 @@ def test_imports_without_jax_reference_or_cv2(tmp_path):
         from orbslam_birdview_tpu_torch.utils import build
         from orbslam_birdview_tpu_torch.frontend import patch_kernel
         assert build.LOADED == {{}}, build.LOADED
+        assert str(build.BUILD_DIR).startswith({str(tmp_path)!r})
         assert patch_kernel.LAUNCHES == 0
         assert not any(m.split(".")[0] in ("jax", "orbslam_birdview_tpu",
                                            "cv2", "matplotlib")
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
     """)
-    # no nvcc on the PATH, and a build directory that must stay untouched
-    env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(REPO))
-    build_dir = REPO / "build" / "torch_kernels"
-    before = sorted(build_dir.iterdir()) if build_dir.exists() else None
+    # no compiler on the PATH, and a build directory of its own that must
+    # not come to exist (the checkout's is shared with the tests that build
+    # the JPEG decoder meanwhile)
+    build_dir = tmp_path / "build"
+    env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(REPO),
+               ORBSLAM_TORCH_BUILD_DIR=str(build_dir))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
-    after = sorted(build_dir.iterdir()) if build_dir.exists() else None
-    assert before == after
+    assert not build_dir.exists()
 
 
 def test_tf32_is_off():
