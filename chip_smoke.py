@@ -6,7 +6,9 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. setup: a CUDA device is required; prints the card's name and power
-   limit and builds the CUDA kernels from the sources in the checkout;
+   limit and builds the CUDA kernels from the sources in the checkout
+   (csrc/patch_gather.cu and csrc/small_linalg.cu, one nvcc each, at
+   once);
 2. kernels: every kernel of the path, called through its wrapper on the
    inputs the main path gives it (and on starts outside the image, which
    the path never produces), held against its plain PyTorch version
@@ -111,12 +113,30 @@ Phases, each of which must pass (any failure exits non-zero):
    `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
    `optimize_sim3_two_frame`, the three pose-graph solvers and
    `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
-   must agree.
+   must agree;
+14. small_linalg: the solvers' SVD and eigh kernels
+   (`core/linalg.svd_small` / `eigh_small`, csrc/small_linalg.cu) against
+   their plain versions at every site of tests/small_linalg_cases.py and
+   on the inputs `initialize_two_view`, `pnp_ransac` and `sim3_ransac`
+   build on the card, with that file's invariants and tolerances (NaN
+   exactly in the non-finite entries), each wrapper call one launch under
+   sync debug mode "error"; the three solvers' remaining sync warnings
+   under "warn" (a reading); each kernel timed over the solvers' calls
+   beside its plain version, torch.linalg and its bound (the larger of
+   its bytes and the textbook operation count of an SVD / eigh, over the
+   card's rates). The init path counts the SVD kernel's launches, the
+   recovering relocalization call both kernels', the loop drive eigh's
+   (each must be above 0). The relocalization record splits the
+   recovering call: its `pnp_ransac` call, a second call on the same
+   inputs, and the process's first torch.linalg svd / eigh; the init
+   record holds the process's first torch.linalg.det, timed just before
+   initialization.
 
-Prints the card line, a `kernels` JSON line, a `slice` JSON line, an `init`
-JSON line, a `system` JSON line, a `loop` JSON line, a `depth` JSON line, a
-`cli` JSON line, a `parallel` JSON line and, last, `{"ok": true, "device":
-{...}}`. `python3 chip_smoke.py --gloo-worker RANK WORLD STORE OUT DEVICE`
+Prints the card line, a `slice` JSON line, an `init` JSON line, a `system`
+JSON line, a `loop` JSON line, a `depth` JSON line, a `cli` JSON line, a
+`parallel` JSON line, a `small_linalg` JSON line, the `kernels` JSON line
+(every kernel: patch_gather, jacobi_svd_f32, jacobi_eigh_f32) and, last,
+`{"ok": true, "device": {...}}`. `python3 chip_smoke.py --gloo-worker RANK WORLD STORE OUT DEVICE`
 is one process of the parallel phase's (c).
 Writes the full record to chiprun_out/chip_smoke.json.
 """
@@ -799,6 +819,7 @@ def init_phase(drive, dev, floors=True):
     tracker = tracking.Tracker(cfg, store, mapper, device=dev)
 
     patch_kernel.LAUNCHES = 0
+    linalg_launches(reset=True)
     attempts, fed = [], 0
     seen = dict(extract_ms=0.0, ba=None)
     for i, (img, bev, _) in enumerate(frames[:MAX_INIT_FRAMES]):
@@ -820,9 +841,11 @@ def init_phase(drive, dev, floors=True):
         if tracker.state == tracking.OK:
             break
     launches = patch_kernel.LAUNCHES
+    solver_launches = linalg_launches()
     check(tracker.state == tracking.OK,
           f"not initialized after {fed} frames: {attempts}")
     check_launches(launches, fed, dev)
+    check_linalg_launches(solver_launches, [SVD_KERNEL], "init")
     # early failures are the 0.3 m veto at work, not faults
     last = attempts[-1]
     check(last["ok"] and last["icp_ok"], f"initialized without the ICP: {last}")
@@ -864,7 +887,7 @@ def init_phase(drive, dev, floors=True):
                                  matching=a["match_ms"],
                                  initialize_two_view=a["two_view_ms"])
                             for a in attempts[:-1]],
-        patch_gather_launches=launches)
+        patch_gather_launches=launches, small_linalg_launches=solver_launches)
     if floors:
         check(abs(rec["scale_ratio"] - 1.0) <= MAX_BASELINE_REL_ERR,
               f"baseline {base} m against {base_gt} m")
@@ -1481,8 +1504,10 @@ def loop_phase(dev, drive):
     cfg = slam_config(drive)
     system = make_system(cfg, dev)
     patch_kernel.LAUNCHES = 0
+    linalg_launches(reset=True)
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
+    rec["small_linalg_launches"] = linalg_launches()
     rec.update(front=f"{cfg.camera.width}x{cfg.camera.height}",
                bev=f"{cfg.birdview.width}x{cfg.birdview.height}",
                features=[cfg.orb.n_features,
@@ -1491,6 +1516,9 @@ def loop_phase(dev, drive):
                patch_gather_launches=patch_kernel.LAUNCHES,
                floors=dict(loops=1, ate_m=MAX_LOOP_ATE_M))
     check_launches(rec["patch_gather_launches"], LOOP_FRAMES, dev)
+    # the drive's initialization launches the SVD kernel, never eigh: the
+    # loop's own kernel is Sim3's eigh
+    check_linalg_launches(rec["small_linalg_launches"], [EIGH_KERNEL], "loop")
     rec["profile"] = profile_mapping(system, dev)
     return rec
 
@@ -1870,12 +1898,65 @@ def e2e_phase(dev):
     return rec
 
 
+def timed_ms(fn, dev):
+    """Host-clock ms of fn() between two device syncs."""
+    sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def library_det_ms(dev):
+    """Two `torch.linalg.det` calls on 256 3×3 matrices on the card, the
+    library call that the two-view solvers and the ICP make; in a process
+    that has not called it yet the first carries the library's set-up."""
+    X = torch.randn((256, 3, 3),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    return [timed_ms(lambda: torch.linalg.det(X), dev) for _ in range(2)]
+
+
+def reloc_split(pnp_calls, dev):
+    """What the recovering call's time is made of: its first `pnp_ransac`
+    call (timed inside the call) and a second call on the same inputs (the
+    generator restored to its state before the first), then the process's
+    first and second `torch.linalg.svd` and `eigh` on the card (256 3×3
+    matrices; a yardstick the port never calls), whose first calls carry
+    the library's set-up, and two `torch.linalg.det` calls (not the
+    process's first: initialization calls it)."""
+    from orbslam_birdview_tpu_torch.solvers import pnp
+
+    first = pnp_calls[0]
+    source = first["source"]
+    if first["state"] is not None:
+        source = torch.Generator(device=source.device)
+        source.set_state(first["state"])
+    second_ms = timed_ms(lambda: pnp.pnp_ransac(source, *first["args"],
+                                                **first["kw"]), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((256, 3, 3), generator=gen, device=dev)
+    S = X + X.transpose(-1, -2)
+    return dict(pnp_calls_ms=[c["ms"] for c in pnp_calls],
+                pnp_second_call_ms=second_ms,
+                library_svd_ms=[timed_ms(lambda: torch.linalg.svd(X), dev)
+                                for _ in range(2)],
+                library_eigh_ms=[timed_ms(lambda: torch.linalg.eigh(S), dev)
+                                 for _ in range(2)],
+                library_det_ms=library_det_ms(dev))
+
+
 def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     """Lost and found: dense keyframes over the first frames of the drive,
     3 blank front and BEV frames (LOST, no reset), then frame `revisit`
-    again, which must relocalize within RELOC_MAX_M of its first pass."""
+    again, which must relocalize within RELOC_MAX_M of its first pass.
+    The recovering call's `Tracker._relocalize` and `pnp_ransac` calls are
+    timed (a device sync around each, inside the call's own time) and
+    split by `reloc_split`. The solver kernels' counts are those of the
+    recovering call alone."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.pipeline import tracking
+    from orbslam_birdview_tpu_torch.solvers import pnp
 
     frames, mask = drive["frames"], drive["mask"]
     cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
@@ -1902,26 +1983,60 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     check(system.store is store and system.n_keyframes() > 5,
           "reloc: the map was reset")
     img, bev, _ = frames[revisit]
-    sync(dev)
-    t0 = time.perf_counter()
-    fd = system.track_monocular_with_birdview(img, bev, mask,
-                                              (n_first + 5) / 25.0)
-    ok = fd.pose_ok
-    sync(dev)
-    reloc_ms = (time.perf_counter() - t0) * 1e3
+    pnp_calls, pnp_ransac = [], pnp.pnp_ransac
+
+    def timed_pnp(source, *args, **kw):
+        state = (source.get_state() if isinstance(source, torch.Generator)
+                 else None)
+        out = []
+        ms = timed_ms(lambda: out.append(pnp_ransac(source, *args, **kw)),
+                      dev)
+        pnp_calls.append(dict(ms=ms, source=source, state=state, args=args,
+                              kw=kw))
+        return out[0]
+
+    tracker, relocalize_ms = system.tracker, []
+
+    def timed_relocalize(*args, **kw):
+        out = []
+        relocalize_ms.append(timed_ms(
+            lambda: out.append(type(tracker)._relocalize(tracker, *args,
+                                                         **kw)), dev))
+        return out[0]
+
+    pnp.pnp_ransac, tracker._relocalize = timed_pnp, timed_relocalize
+    linalg_launches(reset=True)
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        fd = system.track_monocular_with_birdview(img, bev, mask,
+                                                  (n_first + 5) / 25.0)
+        ok = fd.pose_ok
+        sync(dev)
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pnp.pnp_ransac = pnp_ransac
+        del tracker._relocalize
+    solver_launches = linalg_launches()
     check(ok, "reloc: relocalization failed")
     check(system.tracker.last_reloc_frame_id == fd.frame_id,
           "reloc: the pose did not come from relocalization")
     R1, t1 = first_pass[revisit]
     dist = float(np.linalg.norm(-fd.R.T @ fd.t + R1.T @ t1))
     check(dist < RELOC_MAX_M, f"reloc: {dist} m from the first pass")
+    check(pnp_calls, "reloc: the recovering call made no pnp_ransac call")
+    check_linalg_launches(solver_launches, [SVD_KERNEL, EIGH_KERNEL],
+                          "relocalization")
     counters = system.tracker.timer.counters
     return dict(frames=n_first, keyframes=n_kf, recovered=True,
                 centre_diff_m=dist, reloc_call_ms=reloc_ms,
                 pnp_calls=counters.get("reloc.pnp", 0),
                 kfdb_candidates=counters.get("reloc.kfdb_candidates", 0),
                 fallback_used=counters.get("reloc.fallback", 0),
-                patch_gather_launches=patch_kernel.LAUNCHES)
+                patch_gather_launches=patch_kernel.LAUNCHES,
+                small_linalg_launches=solver_launches,
+                relocalize_calls_ms=relocalize_ms,
+                **reloc_split(pnp_calls, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -2132,11 +2247,10 @@ def depth_phase(dev):
     return rec
 
 
-def small_pnp_reference(dev):
-    """`pnp_ransac` on a synthetic scene (300 points, 20 % outliers) on the
-    CPU and on the GPU from the same draws: same `ok`, same inlier count
-    within SMALL_MASK_TOL, R and t within SMALL_PNP_TOL."""
-    from orbslam_birdview_tpu_torch.solvers import pnp, ransac
+def small_pnp_scene():
+    """300 points seen at a known pose with 20 % outliers, from a seed:
+    (`pnp_ransac`'s arguments with 256 EPnP draws, R, t)."""
+    from orbslam_birdview_tpu_torch.solvers import ransac
 
     rng = np.random.default_rng(2)
     n = 300
@@ -2152,8 +2266,17 @@ def small_pnp_reference(dev):
     xy[: n // 5] = rng.uniform(-1, 1, (n // 5, 2))
     chi2 = np.full(n, 5.991 / 500.0 ** 2, np.float32)
     draws = ransac.draw(torch.Generator().manual_seed(0), 256, 4, "cpu")
-    out = [pnp.fetch_result(pnp.pnp_ransac(draws, X, xy, np.ones(n, bool),
-                                           chi2, device=d))
+    return (draws, X, xy, np.ones(n, bool), chi2), R, t
+
+
+def small_pnp_reference(dev):
+    """`pnp_ransac` on a synthetic scene (300 points, 20 % outliers) on the
+    CPU and on the GPU from the same draws: same `ok`, same inlier count
+    within SMALL_MASK_TOL, R and t within SMALL_PNP_TOL."""
+    from orbslam_birdview_tpu_torch.solvers import pnp
+
+    args, R, t = small_pnp_scene()
+    out = [pnp.fetch_result(pnp.pnp_ransac(*args, device=d))
            for d in (torch.device("cpu"), dev)]
     c, g = out
     check(c.ok and g.ok, f"small pnp: ok cpu {c.ok} gpu {g.ok}")
@@ -2165,6 +2288,268 @@ def small_pnp_reference(dev):
           "small pnp: pose not recovered")
     return dict(inliers_cpu=c.n_inliers, inliers_gpu=g.n_inliers,
                 max_pose_diff=diff)
+
+
+# ---------------------------------------------------------------------------
+# small_linalg: the solvers' SVD and eigh kernels
+# ---------------------------------------------------------------------------
+
+F32_FLOP_PER_S = 67e12   # H100 SXM f32 outside the tensor cores, data sheet
+SVD_KERNEL, EIGH_KERNEL = "jacobi_svd_f32", "jacobi_eigh_f32"
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def linalg_launches(reset=False):
+    """The solver kernels' launch counts (a copy); zeroed after the read
+    with `reset`."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    counts = dict(linalg.LAUNCHES)
+    if reset:
+        linalg.LAUNCHES.update(dict.fromkeys(linalg.LAUNCHES, 0))
+    return counts
+
+
+def check_linalg_launches(counts, kernels, path):
+    check(all(counts[k] > 0 for k in kernels),
+          f"{path}: a solver kernel of the path never launched: {counts}")
+
+
+def linalg_cases():
+    """tests/small_linalg_cases.py: the sites, inputs and invariants."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import small_linalg_cases
+    return small_linalg_cases
+
+
+def _np(x):
+    return None if x is None else x.cpu().numpy()
+
+
+def sync_free(fn, *args, **kw):
+    """fn(*args, **kw) under sync debug mode "error"; fails the phase if it
+    synchronises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args, **kw)
+    except RuntimeError as e:
+        raise SmokeFailure(f"{getattr(fn, '__name__', fn)} synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def hold_decomposition(kind, A, full_matrices, name):
+    """One wrapper call on the card (one launch, no sync) against its plain
+    version on the same input, through the invariants of
+    tests/small_linalg_cases.py: the report, whose errors are in units of
+    each matrix's |A|₂, and the largest raw |σ − σ_plain| or
+    |λ − λ_plain| over the finite matrices."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    cases = linalg_cases()
+    kernel = SVD_KERNEL if kind == "svd" else EIGH_KERNEL
+    before = linalg.LAUNCHES[kernel]
+    if kind == "svd":
+        got = sync_free(linalg.svd_small, A, full_matrices)
+        ref = linalg.svd_small_plain(A, full_matrices)
+        vals, ref_vals = got[1], ref[1]
+    else:
+        got = sync_free(linalg.eigh_small, A)
+        ref = linalg.eigh_small_plain(A)
+        vals, ref_vals = got[0], ref[0]
+    check(linalg.LAUNCHES[kernel] == before + 1,
+          f"{name}: {linalg.LAUNCHES[kernel] - before} launches, not 1")
+    try:
+        hold = cases.check_svd if kind == "svd" else cases.check_eigh
+        rep = hold(_np(A), *map(_np, got), [_np(r) for r in ref], name)
+    except AssertionError as e:
+        raise SmokeFailure(f"{kernel} against its plain version: {e}")
+    diff = (vals - ref_vals).abs()
+    err = float(diff[torch.isfinite(diff)].max()) if rep.n_finite else 0.0
+    return rep._asdict(), err
+
+
+def solver_runs(dev):
+    """`initialize_two_view`, `pnp_ransac` and `sim3_ransac` on the card on
+    the reference phase's small scenes (256 hypotheses each), each under
+    sync debug mode "warn": the sync warnings each still gives (a reading,
+    not a bar), and the inputs their `svd_small` / `eigh_small` calls were
+    given, as (kind, A, full_matrices, caller)."""
+    import warnings
+
+    from orbslam_birdview_tpu_torch.core import linalg
+    from orbslam_birdview_tpu_torch.solvers import initializer, pnp, sim3
+
+    K, x1, x2, g1, g2, _, _ = small_two_view(np.random.default_rng(0))
+    init_draws = initializer.draw_init(torch.Generator().manual_seed(0), 256,
+                                       "cpu")
+    pnp_args = small_pnp_scene()[0]
+    sim3_args = small_sim3_scene()[0]
+    runs = dict(
+        initialize_two_view=lambda: initializer.initialize_two_view(
+            init_draws, x1, x2, np.ones(len(x1), bool), K, sigma=1.0,
+            bird_xy1=g1, bird_xy2=g2, bird_valid=np.ones(len(g1), bool),
+            bird_sigma=0.05, R_bc=np.eye(3, dtype=np.float32),
+            t_bc=np.zeros(3, np.float32), device=dev),
+        pnp_ransac=lambda: pnp.pnp_ransac(*pnp_args, device=dev),
+        sim3_ransac=lambda: sim3.sim3_ransac(*sim3_args, device=dev))
+    calls, warned = [], {}
+    svd, eigh = linalg.svd_small, linalg.eigh_small
+    caller = [None]
+
+    def record_svd(A, full_matrices=False):
+        calls.append(("svd", A.clone(), full_matrices, caller[0]))
+        return svd(A, full_matrices)
+
+    def record_eigh(S):
+        calls.append(("eigh", S.clone(), False, caller[0]))
+        return eigh(S)
+
+    linalg.svd_small, linalg.eigh_small = record_svd, record_eigh
+    try:
+        for name, run in runs.items():
+            caller[0] = name
+            sync(dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            sync(dev)
+            warned[name] = sum(SYNC_WARNING in str(w.message) for w in caught)
+    finally:
+        linalg.svd_small, linalg.eigh_small = svd, eigh
+    return calls, warned
+
+
+def decomposition_work(kind, A):
+    """(bytes, flops) of one wrapper call on A, independent of the
+    algorithm: each input read and each output written once; the
+    operation counts of the Golub-Kahan SVD and the symmetric QR
+    algorithm (Golub and Van Loan, Matrix Computations) for the matrices
+    that have to be decomposed, the finite ones: an SVD with U and V of a
+    p×q matrix, p ≥ q, 4p²q + 8pq² + 9q³ flops, with V alone (more than
+    MAX_M rows) 4pq² + 8q³; a symmetric eigen-decomposition with its
+    vectors 9n³."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    m, n = A.shape[-2:]
+    X = A.reshape(-1, m, n)
+    B = X.shape[0]
+    finite = int(torch.isfinite(X).all(-1).all(-1).sum())
+    if kind == "svd":
+        k, p, q = min(m, n), max(m, n), min(m, n)
+        if m <= linalg.MAX_M:
+            n_bytes = 4 * B * (m * n + k + m * m + n * n)
+            flops = 4 * p * p * q + 8 * p * q * q + 9 * q ** 3
+        else:
+            n_bytes = 4 * B * (m * n + k + n * n)
+            flops = 4 * p * q * q + 8 * q ** 3
+    else:
+        n_bytes = 4 * B * (2 * n * n + n)
+        flops = 9 * n ** 3
+    return n_bytes, float(finite * flops)
+
+
+def small_linalg_phase(dev):
+    """Both kernels against their plain versions at every site of
+    tests/small_linalg_cases.py (rank-deficient E, F and Kabsch matrices,
+    repeated eigenvalues, NaN and ±inf entries) and on the inputs the three
+    solvers built on the card, each wrapper call one launch under sync
+    debug mode "error"; then each kernel timed over the solvers' calls
+    (one each, as the solvers made them) beside its plain version,
+    torch.linalg (a yardstick the port never calls, on the inputs with
+    their non-finite matrices zeroed) and its bound."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    cases = linalg_cases()
+    sites, by_caller = {}, {}
+    errs = {k: 0.0 for k in (SVD_KERNEL, EIGH_KERNEL)}
+    raw = dict(errs)
+
+    def hold(kind, A, full, name):
+        kernel = SVD_KERNEL if kind == "svd" else EIGH_KERNEL
+        rep, err = hold_decomposition(kind, A, full, name)
+        errs[kernel] = max(errs[kernel], rep["value"], rep["reconstruction"])
+        raw[kernel] = max(raw[kernel], err)
+        return kernel, rep
+
+    for kind, site_list in (("svd", cases.SVD_SITES),
+                            ("eigh", cases.EIGH_SITES)):
+        for site in site_list:
+            A = torch.from_numpy(cases.make_input(site)).to(dev)
+            sites[site.name] = hold(kind, A, getattr(site, "full_matrices",
+                                                     False), site.name)[1]
+    calls, warned = solver_runs(dev)
+    for kind, A, full, caller in calls:
+        kernel, rep = hold(kind, A, full, f"{caller} {tuple(A.shape)}")
+        by_caller.setdefault(caller, []).append(
+            dict(kernel=kernel, shape=list(A.shape), full_matrices=full,
+                 **{k: rep[k] for k in ("value", "reconstruction",
+                                        "orthogonality", "n_nonfinite")}))
+    out = {}
+    for kind, kernel, wrapper, plain, library in (
+            ("svd", SVD_KERNEL,
+             lambda A, f: linalg.svd_small(A, f),
+             lambda A, f: linalg.svd_small_plain(A, f),
+             lambda A, f: torch.linalg.svd(A, full_matrices=f)),
+            ("eigh", EIGH_KERNEL,
+             lambda A, f: linalg.eigh_small(A),
+             lambda A, f: linalg.eigh_small_plain(A),
+             lambda A, f: torch.linalg.eigh(A))):
+        mine = [(A, f) for k, A, f, _ in calls if k == kind]
+        check(mine, f"the solvers made no {kind} call")
+        clean = [(linalg.finite_or(A, 0.0)[0], f) for A, f in mine]
+        work = [decomposition_work(kind, A) for A, _ in mine]
+        n_bytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        out[kernel] = dict(
+            max_abs_err=errs[kernel], max_value_abs_err=raw[kernel],
+            ms=cuda_ms(lambda: [wrapper(A, f) for A, f in mine]),
+            plain_ms=cuda_ms(lambda: [plain(A, f) for A, f in mine]),
+            library_ms=cuda_ms(lambda: [library(A, f) for A, f in clean]),
+            host_bound_ms=cuda_ms(lambda: [wrapper(A, f) for A, f in mine],
+                                  saturate=False),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=n_bytes, flops=flops,
+            calls=[dict(shape=list(A.shape), full_matrices=f)
+                   for A, f in mine],
+            note="max_abs_err: the largest value or reconstruction error "
+                 "against the plain version, in units of each matrix's "
+                 "|A|_2, over the sites and the solvers' calls "
+                 "(max_value_abs_err unscaled); ms, plain_ms, library_ms "
+                 "and bound_ms: one replay of the solvers' calls")
+    return dict(sites=sites, solver_calls=by_caller, sync_warnings=warned,
+                kernels=out)
+
+
+SOLVER_KERNEL_SITES = {
+    SVD_KERNEL: "jnp.linalg.svd in orbslam_birdview_tpu/solvers/: "
+                "twoview.py:54,64,66,249,273, icp.py:43, epnp.py:129, "
+                "pnp.py:41,45",
+    EIGH_KERNEL: "jnp.linalg.eigh in orbslam_birdview_tpu/solvers/: "
+                 "epnp.py:29,156, sim3.py:48"}
+
+
+def solver_kernel_lines(measured, **by_phase):
+    """The `kernels` line entries of the two solver kernels: the phase's
+    measurements and the launches counted on the paths (`by_phase`, each
+    path's counts zeroed just before it)."""
+    lines = []
+    for name, m in measured.items():
+        launches = {path: counts[name] for path, counts in by_phase.items()}
+        lines.append(dict(
+            m, name=name, route="cuda",
+            source="orbslam_birdview_tpu_torch/csrc/small_linalg.cu",
+            replaces=f"no Pallas kernel; stands for {SOLVER_KERNEL_SITES[name]}",
+            launches=sum(launches.values()), launches_by_phase=launches))
+    return lines
 
 
 def ring_graph(K=64, g=8):
@@ -2205,22 +2590,12 @@ def ring_graph(K=64, g=8):
     return dense, (R, vt, ones, fixed, *grp(band), *grp(~band))
 
 
-def small_loop_reference(dev):
-    """The loop-closing solvers on small inputs on the CPU and on the GPU:
-    `sim3_ransac` from the same draws (the same inlier mask; R, t and s
-    within SMALL_SIM3_TOL), `optimize_sim3_two_frame` (the same inliers,
-    the Sim3 within SMALL_SIM3_TOL), the dense, PCG and banded pose graphs
-    on a 64-vertex drift ring (scales within SMALL_GRAPH_S_TOL,
-    translations within SMALL_GRAPH_T_TOL) and `bundle_adjust_large` on the
-    small BA problem (poses within SMALL_BA_TOL, reprojections within
-    SMALL_BA_REPROJ_TOL)."""
+def small_sim3_scene():
+    """400 point pairs under a known Sim3 (scale 1.3) with 60 outliers, from
+    a seed: (`sim3_ransac`'s arguments with 256 draws, (uv1, uv2))."""
     from orbslam_birdview_tpu_torch.core import lie
-    from orbslam_birdview_tpu_torch.graph import ba_large, pose_graph
-    from orbslam_birdview_tpu_torch.graph.sim3_opt import \
-        optimize_sim3_two_frame
-    from orbslam_birdview_tpu_torch.solvers import ransac, sim3
+    from orbslam_birdview_tpu_torch.solvers import ransac
 
-    cpu = torch.device("cpu")
     rng = np.random.default_rng(4)
     n = 400
     p2 = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
@@ -2237,11 +2612,31 @@ def small_loop_reference(dev):
     uv1 += rng.normal(0, 0.5, uv1.shape).astype(np.float32)
     valid = np.ones(n, bool)
     err = np.full(n, 9.21, np.float32)
-    draws = ransac.draw(torch.Generator().manual_seed(7), 256, 3, cpu)
+    draws = ransac.draw(torch.Generator().manual_seed(7), 256, 3, "cpu")
+    return (draws, p1, p2, valid, err, err, *intr, *intr), (uv1, uv2)
+
+
+def small_loop_reference(dev):
+    """The loop-closing solvers on small inputs on the CPU and on the GPU:
+    `sim3_ransac` from the same draws (the same inlier mask; R, t and s
+    within SMALL_SIM3_TOL), `optimize_sim3_two_frame` (the same inliers,
+    the Sim3 within SMALL_SIM3_TOL), the dense, PCG and banded pose graphs
+    on a 64-vertex drift ring (scales within SMALL_GRAPH_S_TOL,
+    translations within SMALL_GRAPH_T_TOL) and `bundle_adjust_large` on the
+    small BA problem (poses within SMALL_BA_TOL, reprojections within
+    SMALL_BA_REPROJ_TOL)."""
+    from orbslam_birdview_tpu_torch.graph import ba_large, pose_graph
+    from orbslam_birdview_tpu_torch.graph.sim3_opt import \
+        optimize_sim3_two_frame
+    from orbslam_birdview_tpu_torch.solvers import sim3
+
+    cpu = torch.device("cpu")
+    args, (uv1, uv2) = small_sim3_scene()
+    p1, p2, valid, intr = args[1], args[2], args[3], args[6:10]
+    n = len(p1)
     out = {}
-    res = {d.type: sim3.fetch_result(sim3.sim3_ransac(
-        draws, p1, p2, valid, err, err, *intr, *intr, device=d))
-        for d in (cpu, dev)}
+    res = {d.type: sim3.fetch_result(sim3.sim3_ransac(*args, device=d))
+           for d in (cpu, dev)}
     c, g = res["cpu"], res[dev.type]
     check(c.ok and g.ok and np.array_equal(c.inliers, g.inliers),
           f"small sim3_ransac: cpu {c.n_inliers} gpu {g.n_inliers} inliers")
@@ -3118,14 +3513,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 1
+    from orbslam_birdview_tpu_torch.core import linalg
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils import build
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    patch_kernel._kernel()   # builds csrc/patch_gather.cu with nvcc
+    # csrc/patch_gather.cu and csrc/small_linalg.cu, one nvcc each, together
+    build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY])
+    patch_kernel._kernel(), linalg._kernels()
     build_s = time.perf_counter() - t0
     drive = render_drive(SYSTEM_FRAMES)
     seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
@@ -3145,8 +3544,10 @@ def main() -> int:
     write_record()
     check_floors(slice_rec)
 
+    # the process's first torch.linalg.det, before initialization calls it
+    det_ms = library_det_ms(dev)
     tracker, init_rec = init_phase(init_drive, dev)
-    init_rec["card"] = card
+    init_rec.update(card=card, library_det_ms=det_ms)
     full["init"] = init_rec
     write_record()
     tracked_rec, tracked_rows = tracked_from_init_phase(tracker, init_drive,
@@ -3248,14 +3649,28 @@ def main() -> int:
     full["frames"]["profile_top"] = prof["top"]
     slice_rec["small_reference"] = reference_phase(dev)
     loop_rec["small_reference"] = small_loop_reference(dev)
+    # the solvers' SVD and eigh kernels against their plain versions
+    small_rec = dict(card=card)
+    full["small_linalg"] = small_rec
+    try:
+        small_rec.update(small_linalg_phase(dev))
+    finally:
+        write_record()
+    solver_kernels = solver_kernel_lines(
+        small_rec["kernels"], init=init_rec["small_linalg_launches"],
+        relocalization=system_rec["relocalization"]["small_linalg_launches"],
+        loop=loop_rec["circle"]["small_linalg_launches"])
     loop_rec["script_s"] = time.perf_counter() - t_start
     write_record()
 
-    kernels_line = {"kernels": [{k: kernel[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "host_bound_ms", "launches_by_phase", "kitti_stereo")}]}
-    print(json.dumps(kernels_line))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "host_bound_ms", "launches_by_phase")
+    kernels_line = {"kernels": [
+        {k: kernel[k] for k in (*keys, "kitti_stereo")},
+        *({k: line[k] for k in keys} for line in solver_kernels)]}
+    full["kernels_line"] = kernels_line["kernels"]
+    write_record()
     print(json.dumps({"slice": slice_rec}))
     print(json.dumps({"init": init_rec}))
     print(json.dumps({"system": system_rec}))
@@ -3263,6 +3678,11 @@ def main() -> int:
     print(json.dumps({"depth": depth_rec}))
     print(json.dumps({"cli": cli_rec}))
     print(json.dumps({"parallel": parallel_rec}))
+    print(json.dumps({"small_linalg": {
+        k: v for k, v in small_rec.items()
+        if k not in ("sites", "solver_calls")}}))
+    # last but one, so that the end of a long output still holds it
+    print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

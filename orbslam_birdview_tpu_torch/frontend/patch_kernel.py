@@ -49,6 +49,8 @@ class _LevelTable(ctypes.Structure):
                 ("k_total", ctypes.c_int)]
 
 
+# the library's name, sources and headers in csrc/, for utils/build.py
+LIBRARY = ("patch_gather", ["patch_gather.cu"], [])
 _fn = None
 
 
@@ -57,7 +59,7 @@ def _kernel():
     if _fn is None:
         from ..utils import build
 
-        lib = build.load_library("patch_gather", ["patch_gather.cu"])
+        lib = build.load_library(*LIBRARY)
         fn = lib.patch_gather_levels_f32
         fn.argtypes = [ctypes.POINTER(_LevelTable), ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p]

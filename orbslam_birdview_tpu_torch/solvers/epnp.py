@@ -7,14 +7,17 @@ each case by Procrustes, and the case with the least mean squared
 reprojection error. Every function takes leading batch dimensions, so the
 hypotheses of a RANSAC run are solved in one call.
 
-The eigenvectors of `eigh` and the singular vectors of `svd` are defined up
-to sign (and, inside a near-null cluster, up to rotation) and the libraries
-choose differently; the β cases absorb a sign, so compare poses, never V or
-the betas.
+The eigenvectors of `eigh` and the singular vectors of `svd` (here
+`core/linalg.eigh_small` / `svd_small`) are defined up to sign (and, inside
+a near-null cluster, up to rotation) and the kernels and libraries choose
+differently; the β cases absorb a sign, so compare poses, never V or the
+betas.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core import linalg
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 # (i, j), i <= j, in the order of the 10-vector b10 and of L's columns:
@@ -24,22 +27,6 @@ _B10 = tuple((i, j) for i in range(4) for j in range(i, 4))
 
 def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
-
-
-def finite_or(x, fill):
-    """(x with every non-finite matrix of the batch replaced by `fill`, the
-    mask of the finite ones). `eigh` and `svd` refuse non-finite input
-    where the reference's return NaN; the caller puts the NaN back with
-    `poison`, so a degenerate hypothesis still scores nothing."""
-    ok = torch.isfinite(x).all(-1).all(-1)
-    return torch.where(ok[..., None, None], x, fill), ok
-
-
-def poison(x, ok):
-    """x where ok, NaN elsewhere (ok over x's batch dimensions)."""
-    while ok.dim() < x.dim():
-        ok = ok[..., None]
-    return torch.where(ok, x, torch.nan)
 
 
 def _solve(A, b):
@@ -54,9 +41,7 @@ def _control_points(Xw):
     their standard deviations."""
     c = Xw.mean(-2)
     Q = Xw - c[..., None, :]
-    cov, ok = finite_or(Q.transpose(-1, -2) @ Q / Xw.shape[-2], _eye(3, Q))
-    w, V = torch.linalg.eigh(cov)  # ascending
-    V = poison(V, ok)
+    w, V = linalg.eigh_small(Q.transpose(-1, -2) @ Q / Xw.shape[-2])
     s = torch.sqrt(torch.clamp(w, min=1e-12))
     return torch.stack([c, c + s[..., 2, None] * V[..., :, 2],
                         c + s[..., 1, None] * V[..., :, 1],
@@ -146,9 +131,7 @@ def _procrustes(pw, pc):
     cw = pw.mean(-2)
     cc = pc.mean(-2)
     H = (pw - cw[..., None, :]).transpose(-1, -2) @ (pc - cc[..., None, :])
-    H, ok = finite_or(H, _eye(3, H))
-    U, _, Vh = torch.linalg.svd(H)
-    U = poison(U, ok)
+    U, _, Vh = linalg.svd_small(H)
     V = Vh.transpose(-1, -2)
     d = _det3(V @ U.transpose(-1, -2))
     S = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d),
@@ -175,9 +158,8 @@ def epnp(Xw, xy_norm, valid=None):
     cw = _control_points(Xw)
     alphas = _barycentric(Xw, cw)
     M = _build_M(alphas, xy_norm)
-    MtM, ok = finite_or(M.transpose(-1, -2) @ M, _eye(12, M))
-    _, vecs = torch.linalg.eigh(MtM)  # ascending: the first 4 are null-ish
-    vecs = poison(vecs, ok)
+    # ascending: the first 4 are null-ish
+    _, vecs = linalg.eigh_small(M.transpose(-1, -2) @ M)
     V = vecs[..., :, :4]
     L = _L_matrix(V)
     rho = _rho(cw)

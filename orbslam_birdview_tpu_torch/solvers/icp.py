@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
+from ..core import linalg
 from . import ransac
 
 CHI2_2D = 5.991
@@ -32,7 +33,7 @@ def kabsch(p1, p2, w=None):
     q1 = p1 - c1[..., None, :]
     q2 = p2 - c2[..., None, :]
     H = (q2 * w[..., None]).transpose(-1, -2) @ q1   # Σ w · q2 q1ᵀ
-    U, _, Vh = torch.linalg.svd(H)
+    U, _, Vh = linalg.svd_small(H)
     V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
     d = torch.linalg.det(V @ Ut)
     # S = diag(1, …, 1, d): scaling V's last column keeps R a rotation

@@ -19,7 +19,7 @@ import torch
 from .. import resolve_device
 from ..core import lie, linalg
 from . import ransac
-from .epnp import _det3, epnp, finite_or, poison
+from .epnp import _det3, epnp
 
 
 def pnp_dlt(Xw, xy_norm):
@@ -31,13 +31,11 @@ def pnp_dlt(Xw, xy_norm):
     u, v = xy_norm[..., 0:1], xy_norm[..., 1:2]
     r1 = torch.cat([X, z, -u * X], -1)
     r2 = torch.cat([z, X, -v * X], -1)
-    A, ok = finite_or(torch.cat([r1, r2], -2), 0.0)          # (…,2k,12)
-    _, _, vh = torch.linalg.svd(A, full_matrices=True)
-    P = poison(vh[..., -1, :], ok).reshape(*vh.shape[:-2], 3, 4)
+    A = torch.cat([r1, r2], -2)                               # (…,2k,12)
+    _, _, vh = linalg.svd_small(A, full_matrices=True)
+    P = vh[..., -1, :].reshape(*vh.shape[:-2], 3, 4)
     # scale: rows of R must be unit norm; orthogonalize through the SVD
-    M, ok = finite_or(P[..., :3], 0.0)
-    U, s, Vh = torch.linalg.svd(M)
-    U = poison(U, ok)
+    U, s, Vh = linalg.svd_small(P[..., :3].contiguous())
     scale = s.mean(-1)
     R = U @ Vh
     sgn = torch.sign(_det3(R))

@@ -15,9 +15,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import lie
+from ..core import lie, linalg
 from . import ransac
-from .epnp import finite_or, poison
 
 CHI2_SIM3 = 9.210  # 99% 2-DoF, as the reference's Sim3Solver
 
@@ -44,10 +43,8 @@ def horn_sim3(p1, p2, w=None, fix_scale: bool = False):
         torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
     ], -2)
-    # eigh refuses non-finite input where the reference returns NaN
-    N, ok = finite_or(N, 0.0)
-    _, vecs = torch.linalg.eigh(N)                 # ascending
-    R = poison(lie.quat_to_rot(vecs[..., :, -1]), ok)
+    _, vecs = linalg.eigh_small(N)                 # ascending
+    R = lie.quat_to_rot(vecs[..., :, -1])
     rot_q2 = q2 @ R.transpose(-1, -2)
     if fix_scale:
         s = torch.ones(R.shape[:-2], dtype=p1.dtype, device=p1.device)

@@ -46,7 +46,7 @@ def normalize_points(xy, valid):
 
 def _null_vector(A):
     """Last right singular vector of A (…,m,9), m < 9, as (…,3,3)."""
-    _, _, vh = torch.linalg.svd(A, full_matrices=True)
+    _, _, vh = linalg.svd_small(A, full_matrices=True)
     return vh[..., -1, :].reshape(*A.shape[:-2], 3, 3)
 
 
@@ -68,7 +68,7 @@ def _eightpoint_fundamental(x1, x2):
     o = torch.ones_like(u)
     A = torch.stack([up * u, up * v, up, vp * u, vp * v, vp, u, v, o], dim=-1)
     F = _null_vector(A)
-    uF, sF, vFh = torch.linalg.svd(F)
+    uF, sF, vFh = linalg.svd_small(F.contiguous())
     sF = torch.cat([sF[..., :2], torch.zeros_like(sF[..., :1])], dim=-1)
     return (uF * sF[..., None, :]) @ vFh
 
@@ -266,7 +266,7 @@ def check_rt(R, t, xy1, xy2, valid, K, sigma: float):
 
 def decompose_essential(E):
     """E -> (R1, R2, t) with ||t||=1."""
-    u, _, vh = torch.linalg.svd(E)
+    u, _, vh = linalg.svd_small(E.contiguous())
     t = u[:, 2]
     t = t / torch.clamp(torch.linalg.vector_norm(t), min=1e-12)
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
@@ -289,7 +289,7 @@ def motion_hypotheses_from_H(H21, K):
     hypotheses."""
     dtype, dev = H21.dtype, H21.device
     A = torch.linalg.inv_ex(K).inverse @ H21 @ K
-    U, s, Vh = torch.linalg.svd(A)
+    U, s, Vh = linalg.svd_small(A)
     detUV = torch.linalg.det(U) * torch.linalg.det(Vh)
     d1, d2, d3 = s[0], s[1], s[2]
 

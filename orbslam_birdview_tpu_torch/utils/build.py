@@ -61,43 +61,58 @@ def _compiler(sources: list[Path]) -> tuple[list[str], tuple]:
     return [find_cxx()], CXX_FLAGS
 
 
-def _digest(sources: list[Path], flags: tuple) -> str:
+def _digest(files: list[Path], flags: tuple) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_library(name: str, sources: list[Path]) -> Path:
-    """Compile `sources` into one shared library unless an identical build
-    exists; returns its path."""
+def build_libraries(specs) -> list[Path]:
+    """Compile each library of `specs`, (name, sources, headers) with the
+    files in csrc/, unless an identical build exists: one compiler process
+    a library, all started together. Returns their paths in order.
+    `headers`, included by the sources, are hashed with them, so an edited
+    header is rebuilt too."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler, flags = _compiler(sources)
-    target = BUILD_DIR / f"lib{name}-{_digest(sources, flags)}.so"
-    if target.exists():
-        return target
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [*compiler, *flags, "-o", tmp, *map(str, sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{Path(compiler[0]).name} failed "
-                               f"({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
+    paths, jobs = [], []
+    for name, sources, headers in specs:
+        sources = [CSRC / s for s in sources]
+        compiler, flags = _compiler(sources)
+        digest = _digest([*sources, *(CSRC / h for h in headers)], flags)
+        target = BUILD_DIR / f"lib{name}-{digest}.so"
+        paths.append(target)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [*compiler, *flags, "-o", tmp, *map(str, sources)]
+        log = tempfile.TemporaryFile("w+")
+        jobs.append((cmd, tmp, target, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, tmp, target, log, proc in jobs:
+        if proc.wait() == 0:
+            os.replace(tmp, target)
+        else:
+            log.seek(0)
+            failed.append(f"{Path(cmd[0]).name} failed ({proc.returncode}):"
+                          f"\n{' '.join(cmd)}\n{log.read()}")
+        log.close()
         if os.path.exists(tmp):
             os.remove(tmp)
-    return target
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: list[str],
+                 headers: list[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library `name` from files in csrc/."""
     with _lock:
         lib = LOADED.get(name)
         if lib is None:
-            path = build_library(name, [CSRC / s for s in sources])
+            path, = build_libraries([(name, sources, headers)])
             lib = LOADED[name] = ctypes.CDLL(str(path))
         return lib

@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam_birdview_tpu_torch.core import linalg
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
+
+import small_linalg_cases as sl
 
 S = 48
 
@@ -191,3 +194,62 @@ def test_depth_modes_small_on_the_card(cuda):
     launches = tpk.LAUNCHES - before
     assert rec["tracked"] >= 14 and rec["ate_m"] < 0.03
     assert 2 * 18 <= launches <= 3 * 18
+
+
+def _np(x):
+    return None if x is None else x.cpu().numpy()
+
+
+def _sync_free(fn, *args):
+    """fn(*args) under sync debug mode "error": it must not synchronise."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sl.SVD_SITES,
+                         ids=[s.name for s in sl.SVD_SITES])
+def test_jacobi_svd_matches_plain(cuda, site):
+    """`jacobi_svd_f32` against `torch.linalg.svd` behind the guard at
+    every site's shape: one launch, no sync, the invariants and tolerances
+    of small_linalg_cases, NaN exactly in the non-finite entries."""
+    A = torch.from_numpy(sl.make_input(site)).to(cuda)
+    before = linalg.LAUNCHES["jacobi_svd_f32"]
+    got = _sync_free(linalg.svd_small, A, site.full_matrices)
+    assert linalg.LAUNCHES["jacobi_svd_f32"] == before + 1
+    ref = linalg.svd_small_plain(A, site.full_matrices)
+    sl.check_svd(_np(A), *map(_np, got), [_np(r) for r in ref], site.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sl.EIGH_SITES,
+                         ids=[s.name for s in sl.EIGH_SITES])
+def test_jacobi_eigh_matches_plain(cuda, site):
+    A = torch.from_numpy(sl.make_input(site)).to(cuda)
+    before = linalg.LAUNCHES["jacobi_eigh_f32"]
+    got = _sync_free(linalg.eigh_small, A)
+    assert linalg.LAUNCHES["jacobi_eigh_f32"] == before + 1
+    sl.check_eigh(_np(A), *map(_np, got),
+                  [_np(r) for r in linalg.eigh_small_plain(A)], site.name)
+
+
+@pytest.mark.cuda
+def test_small_linalg_rejects_what_the_kernels_do_not_take(cuda):
+    before = dict(linalg.LAUNCHES)
+    ok = torch.zeros((4, 3, 3), device=cuda)
+    for fn in (linalg.svd_small, linalg.eigh_small):
+        for bad in (ok.double(), ok.transpose(0, 1),
+                    torch.zeros((2, 13, 13), device=cuda)):
+            with pytest.raises(ValueError):
+                fn(bad)
+    assert linalg.LAUNCHES == before
+    # an empty batch: empty results and no launch
+    assert linalg.svd_small(ok[:0])[1].shape == (0, 3)
+    assert linalg.eigh_small(ok[:0])[0].shape == (0, 3)
+    assert linalg.LAUNCHES == before
