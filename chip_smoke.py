@@ -122,15 +122,18 @@ Phases, each of which must pass (any failure exits non-zero):
    exactly in the non-finite entries), each wrapper call one launch under
    sync debug mode "error"; the three solvers' remaining sync warnings
    under "warn" (a reading); each kernel timed over the solvers' calls
-   beside its plain version, torch.linalg and its bound (the larger of
-   its bytes and the textbook operation count of an SVD / eigh, over the
-   card's rates). The init path counts the SVD kernel's launches, the
+   beside its plain version, torch.linalg, its bound (the larger of its
+   bytes and the textbook operation count of an SVD / eigh, over the
+   card's rates) and its launch floor (as many launches of an empty
+   kernel of the same library, timed the same way). The init path counts the SVD kernel's launches, the
    recovering relocalization call both kernels', the loop drive eigh's
    (each must be above 0). The relocalization record splits the
    recovering call: its `pnp_ransac` call, a second call on the same
    inputs, and the process's first torch.linalg svd / eigh; the init
-   record holds the process's first torch.linalg.det, timed just before
-   initialization.
+   record holds the process's first torch.linalg.det, timed just after
+   initialization, which must call it on no CUDA tensor (`det_small`
+   takes its closed form there), and `det_small`'s sign on the card
+   against the library's on the matrices of the solvers' det sites.
 
 Prints the card line, a `slice` JSON line, an `init` JSON line, a `system`
 JSON line, a `loop` JSON line, a `depth` JSON line, a `cli` JSON line, a
@@ -366,7 +369,7 @@ def kernel_phase(img, bev, mask, cfg, bcfg, dev):
              "the kernel's 2 launches (one per extraction), plain_ms and "
              "library_ms their 12 per-level calls, all with the device "
              "queue full; host_bound_ms the 2 launches as the step issues "
-             "them")
+             "them; launch_floor_ms 2 launches of an empty kernel")
 
 
 def gather_measure(extractions, dev):
@@ -459,7 +462,20 @@ def gather_measure(extractions, dev):
     return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 library_ms=library_ms, host_bound_ms=kernel_host_ms,
+                launch_floor_ms=launch_floor_ms(len(calls), dev),
                 bytes=n_bytes, level_shapes=shapes)
+
+
+def launch_floor_ms(count, dev):
+    """`count` launches of an empty kernel of one block
+    (`small_linalg_empty` of csrc/small_linalg.cu) through the wrappers'
+    ctypes launch, timed as `cuda_ms` times the kernels: the floor under
+    that many launches of any of them."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    empty = linalg._kernels()[2]
+    return cuda_ms(lambda: [linalg._launch(empty, (), dev)
+                            for _ in range(count)])
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +750,42 @@ def check_launches(launches, n_frames, dev):
 
 
 @contextlib.contextmanager
+def library_det_calls(devices):
+    """While active, every `torch.linalg.det` call appends its tensor's
+    device type to `devices`."""
+    real = torch.linalg.det
+
+    def counted(X, *args, **kw):
+        devices.append(X.device.type)
+        return real(X, *args, **kw)
+
+    torch.linalg.det = counted
+    try:
+        yield
+    finally:
+        torch.linalg.det = real
+
+
+def det_sign_check(dev):
+    """`det_small` on the card (its closed form) against `torch.linalg.det`
+    on the CPU on the matrices of the solvers' det sites
+    (tests/small_linalg_cases.py `det_inputs`): the same sign on every
+    matrix, with no host sync."""
+    from orbslam_birdview_tpu_torch.core import linalg
+
+    out = {}
+    for name, X in linalg_cases().det_inputs().items():
+        got = sync_free(linalg.det_small, torch.from_numpy(X).to(dev)).cpu()
+        want = torch.linalg.det(torch.from_numpy(X))
+        agree = int((torch.sign(got) == torch.sign(want)).sum())
+        check(agree == len(X), f"det_small's sign is not the library's at "
+              f"{name}: {agree} of {len(X)} agree")
+        out[name] = dict(matrices=len(X),
+                         max_abs_diff=float((got - want).abs().max()))
+    return out
+
+
+@contextlib.contextmanager
 def observed_init(dev, seen):
     """While active, `extract_orb` is timed (host clock around a sync) into
     seen["extract_ms"], and the arguments and result of `bundle_adjust` are
@@ -887,6 +939,7 @@ def init_phase(drive, dev, floors=True):
                                  matching=a["match_ms"],
                                  initialize_two_view=a["two_view_ms"])
                             for a in attempts[:-1]],
+        first_initialize_two_view_ms=attempts[0]["two_view_ms"],
         patch_gather_launches=launches, small_linalg_launches=solver_launches)
     if floors:
         check(abs(rec["scale_ratio"] - 1.0) <= MAX_BASELINE_REL_ERR,
@@ -1909,8 +1962,9 @@ def timed_ms(fn, dev):
 
 def library_det_ms(dev):
     """Two `torch.linalg.det` calls on 256 3×3 matrices on the card, the
-    library call that the two-view solvers and the ICP make; in a process
-    that has not called it yet the first carries the library's set-up."""
+    library call that `core/linalg.det_small` takes for CPU tensors only;
+    in a process that has not called it yet the first carries the
+    library's set-up."""
     X = torch.randn((256, 3, 3),
                     generator=torch.Generator(device=dev).manual_seed(0),
                     device=dev)
@@ -1924,7 +1978,7 @@ def reloc_split(pnp_calls, dev):
     first and second `torch.linalg.svd` and `eigh` on the card (256 3×3
     matrices; a yardstick the port never calls), whose first calls carry
     the library's set-up, and two `torch.linalg.det` calls (not the
-    process's first: initialization calls it)."""
+    process's first: the init record's came first)."""
     from orbslam_birdview_tpu_torch.solvers import pnp
 
     first = pnp_calls[0]
@@ -2515,6 +2569,7 @@ def small_linalg_phase(dev):
             library_ms=cuda_ms(lambda: [library(A, f) for A, f in clean]),
             host_bound_ms=cuda_ms(lambda: [wrapper(A, f) for A, f in mine],
                                   saturate=False),
+            launch_floor_ms=launch_floor_ms(len(mine), dev),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=n_bytes, flops=flops,
@@ -2523,8 +2578,9 @@ def small_linalg_phase(dev):
             note="max_abs_err: the largest value or reconstruction error "
                  "against the plain version, in units of each matrix's "
                  "|A|_2, over the sites and the solvers' calls "
-                 "(max_value_abs_err unscaled); ms, plain_ms, library_ms "
-                 "and bound_ms: one replay of the solvers' calls")
+                 "(max_value_abs_err unscaled); ms, plain_ms, library_ms, "
+                 "bound_ms and launch_floor_ms: one replay of the solvers' "
+                 "calls")
     return dict(sites=sites, solver_calls=by_caller, sync_warnings=warned,
                 kernels=out)
 
@@ -3544,10 +3600,17 @@ def main() -> int:
     write_record()
     check_floors(slice_rec)
 
-    # the process's first torch.linalg.det, before initialization calls it
-    det_ms = library_det_ms(dev)
-    tracker, init_rec = init_phase(init_drive, dev)
-    init_rec.update(card=card, library_det_ms=det_ms)
+    # initialization with no library det on the card (`det_small` takes
+    # its closed form there); the library's first call is timed after it
+    det_devices = []
+    with library_det_calls(det_devices):
+        tracker, init_rec = init_phase(init_drive, dev)
+    init_rec.update(card=card, library_det_calls=det_devices)
+    check("cuda" not in det_devices,
+          f"initialization called torch.linalg.det on the card: "
+          f"{det_devices}")
+    init_rec.update(library_det_ms=library_det_ms(dev),
+                    det_small=det_sign_check(dev))
     full["init"] = init_rec
     write_record()
     tracked_rec, tracked_rows = tracked_from_init_phase(tracker, init_drive,
@@ -3617,8 +3680,8 @@ def main() -> int:
     del loop_drive
     kitti = depth_rec["gather_kitti_stereo"]
     kernel["kitti_stereo"] = {k: kitti[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms", "bytes",
-        "max_abs_err", "note")}
+        "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms",
+        "launch_floor_ms", "bytes", "max_abs_err", "note")}
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kitti["max_abs_err"])
     by_phase.update(system=system_rec["drive"]["patch_gather_launches"],
                     loop=loop_rec["circle"]["patch_gather_launches"],
@@ -3665,7 +3728,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "host_bound_ms", "launches_by_phase")
+            "host_bound_ms", "launch_floor_ms", "launches_by_phase")
     kernels_line = {"kernels": [
         {k: kernel[k] for k in (*keys, "kitti_stereo")},
         *({k: line[k] for k in keys} for line in solver_kernels)]}

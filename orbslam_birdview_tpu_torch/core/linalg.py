@@ -6,13 +6,22 @@ turns TF32 off for every matmul when it is imported (see `__init__.py`).
 `svd_small` and `eigh_small` decompose the solvers' small matrices (at
 most 12 columns, batched over the RANSAC hypotheses). For CUDA tensors they
 launch the hand-written kernels of `csrc/small_linalg.cu` (a one-sided
-Jacobi SVD and a cyclic Jacobi eigh, one thread per matrix; the per-matrix
-routines are `csrc/small_linalg.cuh`), once per call, with no host sync
-and no cuSOLVER, and raise on anything the kernels do not take; for CPU
-tensors they run the plain versions, `torch.linalg.svd` / `eigh` behind
-`finite_or` / `poison`. There is no fallback from the one to the other.
-Both give NaN in every output of a matrix with a non-finite entry, as the
-JAX package's `jnp.linalg.svd` / `eigh` do, where torch's would refuse it.
+Jacobi SVD and a cyclic Jacobi eigh, a lane group of a warp per matrix;
+the per-matrix routines are `csrc/small_linalg.cuh`), once per call, with
+no host sync and no cuSOLVER, and raise on anything the kernels do not
+take; for CPU tensors they run the plain versions, `torch.linalg.svd` /
+`eigh` behind `finite_or` / `poison`. There is no fallback from the one to
+the other. Both give NaN in every output of a matrix with a non-finite
+entry, as the JAX package's `jnp.linalg.svd` / `eigh` do, where torch's
+would refuse it.
+
+`det_small` is the 2×2 / 3×3 determinant of `twoview.py` and `icp.py`:
+`torch.linalg.det` for CPU tensors, a closed form for CUDA tensors (the
+library's first call in a process costs about a second on the card, on
+the first map's path). `epnp.py` and `pnp.py` call the closed form,
+`det_closed`, on both devices. Each solver keeps on the CPU the
+determinant with which its results were first held against the JAX
+package, so those CPU results stay bit for bit as they were.
 
 Singular and eigenvectors are defined up to sign, and inside a repeated
 value only as a subspace; the kernels and the libraries choose
@@ -28,6 +37,7 @@ import torch
 
 MAX_N = 12      # columns
 MAX_M = 16      # rows for which the SVD gives U; taller ones give S and Vh
+MAX_TALL_M = 64  # rows the SVD takes without U
 
 # launches of each CUDA kernel, counted where it is launched
 LAUNCHES = {"jacobi_svd_f32": 0, "jacobi_eigh_f32": 0}
@@ -101,7 +111,8 @@ _fns = None
 
 
 def _kernels():
-    """The two C entry points of csrc/small_linalg.cu, built at first use."""
+    """The C entry points of csrc/small_linalg.cu, built at first use: the
+    two kernels and an empty kernel (a launch floor for timing)."""
     global _fns
     if _fns is None:
         from ..utils import build
@@ -112,8 +123,10 @@ def _kernels():
         svd.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
         eigh = lib.jacobi_eigh_f32
         eigh.argtypes = [ptr, i32, i32, ptr, ptr, ptr]
-        svd.restype = eigh.restype = ctypes.c_int
-        _fns = svd, eigh
+        empty = lib.small_linalg_empty
+        empty.argtypes = [ptr]
+        svd.restype = eigh.restype = empty.restype = ctypes.c_int
+        _fns = svd, eigh, empty
     return _fns
 
 
@@ -124,9 +137,9 @@ def _check(name, X):
     if X.dim() < 2:
         raise ValueError(f"{name}: needs (…, m, n), got {tuple(X.shape)}")
     m, n = X.shape[-2:]
-    if not (m >= 1 and 1 <= n <= MAX_N):
+    if not (1 <= m <= MAX_TALL_M and 1 <= n <= MAX_N):
         raise ValueError(f"{name}: {m}x{n} matrices, the kernel takes at "
-                         f"most {MAX_N} columns")
+                         f"most {MAX_N} columns and {MAX_TALL_M} rows")
     if not X.is_contiguous():
         raise ValueError(f"{name}: the input must be contiguous")
     if X.device.type not in ("cpu", "cuda"):
@@ -174,11 +187,10 @@ def eigh_launch(S):
 
 
 def svd_small(A, full_matrices: bool = False):
-    """SVD of (…,m,n) f32 matrices, n ≤ 12, as `torch.linalg.svd`: (U, S,
-    Vh) with S descending; U is None for more than MAX_M rows (the kernel
-    then reduces each matrix to its n×n triangular factor first and keeps
-    no U). CUDA tensors launch `jacobi_svd_f32` once; CPU tensors take the
-    plain version."""
+    """SVD of (…,m,n) f32 matrices, n ≤ 12, m ≤ MAX_TALL_M, as
+    `torch.linalg.svd`: (U, S, Vh) with S descending; U is None for more
+    than MAX_M rows (the kernel keeps no U there). CUDA tensors launch
+    `jacobi_svd_f32` once; CPU tensors take the plain version."""
     _check("svd_small", A)
     if A.device.type == "cpu":
         return svd_small_plain(A, full_matrices)
@@ -216,3 +228,31 @@ def eigh_small(S):
         return S.new_empty((*batch, n)), S.new_empty((*batch, n, n))
     w, V = eigh_launch(S.reshape(B, n, n))
     return w.reshape(*batch, n), V.reshape(*batch, n, n)
+
+
+def det_closed(X):
+    """The determinant of (…,2,2) or (…,3,3) matrices in closed form (the
+    3×3 one by the first row's cofactors): elementwise, no library call,
+    no host sync."""
+    if X.shape[-1] == 2:
+        return X[..., 0, 0] * X[..., 1, 1] - X[..., 0, 1] * X[..., 1, 0]
+    return (X[..., 0, 0] * (X[..., 1, 1] * X[..., 2, 2]
+                            - X[..., 1, 2] * X[..., 2, 1])
+            - X[..., 0, 1] * (X[..., 1, 0] * X[..., 2, 2]
+                              - X[..., 1, 2] * X[..., 2, 0])
+            + X[..., 0, 2] * (X[..., 1, 0] * X[..., 2, 1]
+                              - X[..., 1, 1] * X[..., 2, 0]))
+
+
+def det_small(X):
+    """Determinant of (…,n,n) matrices, n ∈ {2, 3}: `torch.linalg.det` for
+    CPU tensors, so the CPU results are the library's; `det_closed` for
+    CUDA tensors. The solvers take only its sign, or multiply by ±1.
+    `epnp.py` and `pnp.py` call `det_closed` directly, on both devices
+    (see the module's docstring)."""
+    if X.dim() < 2 or X.shape[-1] != X.shape[-2] or X.shape[-1] not in (2, 3):
+        raise ValueError(f"det_small: 2×2 or 3×3 matrices, got "
+                         f"{tuple(X.shape)}")
+    if X.device.type == "cpu":
+        return torch.linalg.det(X)
+    return det_closed(X)

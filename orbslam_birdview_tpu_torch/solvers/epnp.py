@@ -117,15 +117,6 @@ def _gn_betas(L, rho, betas, iters: int = 5):
     return betas
 
 
-def _det3(M):
-    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2]
-                            - M[..., 1, 2] * M[..., 2, 1])
-            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2]
-                              - M[..., 1, 2] * M[..., 2, 0])
-            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1]
-                              - M[..., 1, 1] * M[..., 2, 0]))
-
-
 def _procrustes(pw, pc):
     """Rigid (R, t) with pc ≈ R pw + t (Horn / Kabsch)."""
     cw = pw.mean(-2)
@@ -133,7 +124,7 @@ def _procrustes(pw, pc):
     H = (pw - cw[..., None, :]).transpose(-1, -2) @ (pc - cc[..., None, :])
     U, _, Vh = linalg.svd_small(H)
     V = Vh.transpose(-1, -2)
-    d = _det3(V @ U.transpose(-1, -2))
+    d = linalg.det_closed(V @ U.transpose(-1, -2))
     S = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d),
                                       d], -1))
     R = V @ S @ U.transpose(-1, -2)

@@ -35,7 +35,7 @@ def kabsch(p1, p2, w=None):
     H = (q2 * w[..., None]).transpose(-1, -2) @ q1   # Σ w · q2 q1ᵀ
     U, _, Vh = linalg.svd_small(H)
     V, Ut = Vh.transpose(-1, -2), U.transpose(-1, -2)
-    d = torch.linalg.det(V @ Ut)
+    d = linalg.det_small(V @ Ut)
     # S = diag(1, …, 1, d): scaling V's last column keeps R a rotation
     # whichever signs the SVD chose
     S = torch.ones(H.shape[:-1], dtype=p1.dtype, device=p1.device)

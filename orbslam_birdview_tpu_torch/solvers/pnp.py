@@ -19,12 +19,13 @@ import torch
 from .. import resolve_device
 from ..core import lie, linalg
 from . import ransac
-from .epnp import _det3, epnp
+from .epnp import epnp
 
 
 def pnp_dlt(Xw, xy_norm):
-    """Direct linear transform pose from k >= 6 3D-2D pairs, batched over
-    leading dimensions. Xw (…,k,3) world points; xy_norm (…,k,2)
+    """Direct linear transform pose from 6 <= k <= 32 3D-2D pairs (the 2k
+    rows of its system at most `linalg.MAX_TALL_M`), batched over leading
+    dimensions. Xw (…,k,3) world points; xy_norm (…,k,2)
     normalized image coordinates (K⁻¹x). Returns (R, t) with x ~ [R|t] X."""
     X = torch.cat([Xw, torch.ones_like(Xw[..., :1])], -1)       # (…,k,4)
     z = torch.zeros_like(X)
@@ -38,7 +39,7 @@ def pnp_dlt(Xw, xy_norm):
     U, s, Vh = linalg.svd_small(P[..., :3].contiguous())
     scale = s.mean(-1)
     R = U @ Vh
-    sgn = torch.sign(_det3(R))
+    sgn = torch.sign(linalg.det_closed(R))
     R = R * sgn[..., None, None]
     t = P[..., 3] / torch.clamp(scale, min=1e-12)[..., None] * sgn[..., None]
     # cheirality: the majority of the points must be in front
@@ -47,7 +48,7 @@ def pnp_dlt(Xw, xy_norm):
     R = torch.where(flip[..., None, None], -R, R)
     t = torch.where(flip[..., None], -t, t)
     # −R has det −1 after the flip: take R back
-    R = torch.where((_det3(R) < 0)[..., None, None], -R, R)
+    R = torch.where((linalg.det_closed(R) < 0)[..., None, None], -R, R)
     return R, t
 
 

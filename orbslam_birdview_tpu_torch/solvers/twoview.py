@@ -273,8 +273,8 @@ def decompose_essential(E):
                      dtype=E.dtype, device=E.device)
     R1 = u @ W @ vh
     R2 = u @ W.T @ vh
-    R1 = R1 * torch.sign(torch.linalg.det(R1))
-    R2 = R2 * torch.sign(torch.linalg.det(R2))
+    R1 = R1 * torch.sign(linalg.det_small(R1))
+    R2 = R2 * torch.sign(linalg.det_small(R2))
     return R1, R2, t
 
 
@@ -290,7 +290,7 @@ def motion_hypotheses_from_H(H21, K):
     dtype, dev = H21.dtype, H21.device
     A = torch.linalg.inv_ex(K).inverse @ H21 @ K
     U, s, Vh = linalg.svd_small(A)
-    detUV = torch.linalg.det(U) * torch.linalg.det(Vh)
+    detUV = linalg.det_small(U) * linalg.det_small(Vh)
     d1, d2, d3 = s[0], s[1], s[2]
 
     eps = 1e-9

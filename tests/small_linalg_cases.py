@@ -65,6 +65,9 @@ class EighSite(NamedTuple):
 SVD_SITES = [
     SvdSite("twoview_null_H", (256,), 8, 9, True, "dlt_h", True),
     SvdSite("twoview_null_F", (256,), 8, 9, True, "dlt_f", True),
+    # repeated correspondences: rank 7 or 6, a null space of 2 or 3
+    SvdSite("twoview_null_F_rank_deficient", (64,), 8, 9, True, "dlt_f_rank",
+            False),
     SvdSite("twoview_F_rank2", (256,), 3, 3, False, "f_proj", True),
     SvdSite("twoview_E", (), 3, 3, False, "essential", False),
     SvdSite("twoview_E_nonfinite", (), 3, 3, False, "essential", True),
@@ -78,7 +81,9 @@ SVD_SITES = [
     SvdSite("epnp_procrustes", (256,), 3, 3, False, "procrustes", True),
     SvdSite("pnp_dlt", (256,), 12, 12, True, "dlt_pnp", True),
     SvdSite("pnp_dlt_M", (256,), 3, 3, False, "generic", True),
-    # pnp_dlt on 30 points (not on a path): taller than 16 rows, no U
+    # pnp_dlt on 12 and 30 points (not on a path): taller than 16 rows, no
+    # U; 2 rows a lane of the kernel's 32
+    SvdSite("pnp_dlt_12_points", (4,), 24, 12, True, "dlt_pnp_12", True),
     SvdSite("pnp_dlt_30_points", (4,), 60, 12, True, "dlt_pnp_30", True),
 ]
 
@@ -221,6 +226,12 @@ def _one(kind, rng, i):
     if kind == "dlt_f":
         # entries 20-23 from coplanar points: a repeated zero σ
         return _dlt_f(rng, planar=20 <= i < 24)
+    if kind == "dlt_f_rank":
+        A = _dlt_f(rng)
+        A[7] = A[0]
+        if i % 2:
+            A[6] = A[1]
+        return A
     if kind == "f_proj":
         F = rng.standard_normal((3, 3))
         F /= np.linalg.norm(F)
@@ -245,8 +256,8 @@ def _one(kind, rng, i):
         return H if i % 16 else np.zeros((3, 3))   # some all-zero H
     if kind == "dlt_pnp":
         return _dlt_pnp(rng)
-    if kind == "dlt_pnp_30":
-        return _dlt_pnp(rng, 30)
+    if kind.startswith("dlt_pnp_"):
+        return _dlt_pnp(rng, int(kind.rsplit("_", 1)[1]))
     if kind == "cov":
         return _cov(rng, i % 4)
     if kind == "mtm":
@@ -273,6 +284,34 @@ def make_input(site, seed=0):
             A[INF_AT, 0, 0] = np.inf
             A[NINF_AT, -1, -1] = -np.inf
     return A.reshape(*site.batch, *A.shape[-2:])
+
+
+_W = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+
+
+def det_inputs(batch=64, seed=0):
+    """The matrices whose determinant the solvers take, built from the SVD
+    sites' inputs with numpy's SVD: solvers/twoview.py's
+    `decompose_essential` R1 = U W Vh and R2 = U Wᵀ Vh and
+    `motion_hypotheses_from_H`'s U and Vh; solvers/icp.py's V Uᵀ of the
+    2-D and 3-D Kabsch matrices, minimal sets and refits. name ->
+    (batch, d, d) f32, each orthogonal with det ±1."""
+    sites = {s.name: s for s in SVD_SITES}
+
+    def svd(name):
+        site = sites[name]._replace(batch=(batch,), nonfinite=False)
+        return np.linalg.svd(make_input(site, seed).astype(np.float64))
+
+    out = {}
+    U, _, Vh = svd("twoview_E")
+    out.update(twoview_R1=U @ _W @ Vh, twoview_R2=U @ _W.T @ Vh)
+    U, _, Vh = svd("twoview_H_decompose")
+    out.update(twoview_H_U=U, twoview_H_Vh=Vh)
+    for name in ("icp_kabsch_2d", "icp_kabsch_2d_refit", "icp_kabsch_3d",
+                 "icp_kabsch_3d_refit"):
+        U, _, Vh = svd(name)
+        out[name] = np.swapaxes(Vh, -1, -2) @ np.swapaxes(U, -1, -2)
+    return {k: v.astype(np.float32) for k, v in out.items()}
 
 
 def finite_entries(A):

@@ -253,3 +253,27 @@ def test_small_linalg_rejects_what_the_kernels_do_not_take(cuda):
     assert linalg.svd_small(ok[:0])[1].shape == (0, 3)
     assert linalg.eigh_small(ok[:0])[0].shape == (0, 3)
     assert linalg.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 17, 31, 32, 33, 48, 63, 64])
+def test_jacobi_svd_group_boundaries(cuda, m):
+    """At each change of the kernel's group (16 lanes up to 16 rows, then
+    32 lanes of 2 rows, lane i holding rows i and i + 32), against the
+    plain version."""
+    A = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (64, m, 12)).astype(np.float32)).to(cuda)
+    got = _sync_free(linalg.svd_small, A, True)
+    ref = linalg.svd_small_plain(A, True)
+    sl.check_svd(_np(A), *map(_np, got), [_np(r) for r in ref], f"{m}x12")
+
+
+@pytest.mark.cuda
+def test_det_small_closed_form_on_the_card(cuda):
+    """On CUDA tensors det_small takes the closed form, with no sync, and
+    gives the library's sign at every det site of the solvers."""
+    for name, X in sl.det_inputs().items():
+        got = _sync_free(linalg.det_small, torch.from_numpy(X).to(cuda))
+        want = torch.linalg.det(torch.from_numpy(X))
+        assert torch.equal(torch.sign(got.cpu()), torch.sign(want)), name
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)

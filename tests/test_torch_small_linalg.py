@@ -194,3 +194,88 @@ def test_no_module_calls_the_library_decompositions():
                 found.append(f"{path.relative_to(PORT)}:{i}")
     assert found and all(f.startswith("core/linalg.py:") for f in found), \
         found
+
+
+def test_host_jacobi_null_space_of_rank_deficient_dlt(host_jacobi):
+    """8×9 DLT systems with repeated correspondences (rank 7 or 6): the
+    last 9 − rank rows of Vh span A's null space, as JAX's do, and the
+    completed columns of U make it orthogonal."""
+    site = next(s for s in cases.SVD_SITES
+                if s.name == "twoview_null_F_rank_deficient")
+    A = cases.make_input(site)
+    U, S, Vh, sweeps = host_jacobi[0](A)
+    _, _, Vh_ref = _jax_svd(A, True)
+    for b in range(len(A)):
+        null = 2 + b % 2
+        scale = float(S[b, 0])
+        N = Vh[b, -null:].astype(np.float64)
+        assert np.abs(A[b] @ N.T).max() <= cases.VALUE_TOL * scale
+        P_ref = Vh_ref[b, -null:].T @ Vh_ref[b, -null:]
+        assert np.abs(N.T @ N - P_ref).max() <= 1e-4
+        assert S[b, 8 - null + 1:].max() <= 1e-6 * scale
+        np.testing.assert_allclose(U[b].T @ U[b], np.eye(8), atol=1e-5)
+    assert (sweeps < cases.MAX_SWEEPS).all()
+
+
+@pytest.mark.parametrize("m", [16, 17, 31, 32, 33, 48, 63, 64])
+def test_host_jacobi_group_boundaries(m, host_jacobi):
+    """At each change of the kernel's group (16 lanes up to 16 rows, then
+    32 lanes of 2 rows, lane i holding rows i and i + 32) the values and
+    V are the library's."""
+    A = np.random.default_rng(m).standard_normal((2, m, 12)) \
+        .astype(np.float32)
+    U, S, Vh, sweeps = host_jacobi[0](A)
+    assert (U is None) == (m > linalg.MAX_M)
+    cases.check_svd(A, U, S, Vh, _jax_svd(A, True), f"{m}x12")
+    assert (sweeps < cases.MAX_SWEEPS).all()
+
+
+def test_svd_small_rejects_more_rows_than_the_kernel_takes(host_jacobi):
+    A = torch.zeros((2, linalg.MAX_TALL_M + 1, 12))
+    with pytest.raises(ValueError):
+        linalg.svd_small(A)
+    linalg.svd_small(A[:, :-1].contiguous())
+    with pytest.raises(AssertionError):
+        host_jacobi[0](A.numpy())
+
+
+def test_det_closed_agrees_in_sign_with_the_library():
+    """The closed form that CUDA tensors take gives the library's sign on
+    every matrix of the solvers' det sites (both signs occur)."""
+    signs = set()
+    for name, X in cases.det_inputs().items():
+        X = torch.from_numpy(X)
+        want = torch.sign(torch.linalg.det(X))
+        got = torch.sign(linalg.det_closed(X))
+        assert torch.equal(got, want), name
+        torch.testing.assert_close(linalg.det_closed(X), torch.linalg.det(X),
+                                   atol=1e-5, rtol=0)
+        signs.update(want.tolist())
+    assert signs == {-1.0, 1.0}
+
+
+def test_det_small_is_the_library_on_the_cpu():
+    """On CPU tensors det_small is torch.linalg.det, bit for bit, so every
+    CPU result of the solvers stays as it was."""
+    rng = np.random.default_rng(3)
+    for n in (2, 3):
+        X = torch.from_numpy(rng.standard_normal((64, n, n))
+                             .astype(np.float32))
+        assert torch.equal(linalg.det_small(X), torch.linalg.det(X))
+    for bad in (torch.zeros((2, 4, 4)), torch.zeros((2, 3, 2)),
+                torch.zeros(3)):
+        with pytest.raises(ValueError):
+            linalg.det_small(bad)
+
+
+def test_no_module_calls_the_library_det():
+    """Outside core/linalg.py no module of the port calls
+    torch.linalg.det, so a CUDA tensor takes the closed form."""
+    pattern = re.compile(r"torch\.linalg\.det\(")
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if pattern.search(line):
+                found.append(f"{path.relative_to(PORT)}:{i}")
+    assert found and all(f.startswith("core/linalg.py:") for f in found), \
+        found
