@@ -19,7 +19,7 @@ Phases, each of which must pass (any failure exits non-zero):
    (configs/fisheye_birdview.yaml), 2000 features on 8 levels, minThFAST 5;
    384×384 BEV with the footprint mask, 2000 features on 4 levels; a
    6144-point local map and a 2048-point ground bundle seeded from frame
-   0's ground truth — over 15 frames of a rendered drive, chained on the
+   0's ground truth — over 10 frames of a rendered drive, chained on the
    device pose chain; then 5 mono-only frames. One more frame runs under
    torch.profiler (after every timed drive, so that no timed drive follows
    a profiler session), which attributes its device kernels to the two
@@ -70,21 +70,31 @@ Phases, each of which must pass (any failure exits non-zero):
    patch-gather launches exactly 2 a fused and 3 a slow-path stereo
    frame, 1 an RGB-D frame; the gather timed at the KITTI stereo frame's
    shapes; `stereo_match` / `refine_stereo_subpixel` on the CPU against
-   the GPU. The e2e phase (8.) also runs the four stereo and RGB-D tests
-   of tests/test_e2e.py with their bars;
+   the GPU. Then `rgbd_circle`, fixed-scale loop closing end to end: the
+   circle of the loop phase (2π/120 rad a frame, 142 frames) at 0.04 m a
+   frame inside a box room of half-width 2.4 m, rendered with the port's
+   `synth` with each pixel's exact depth, through `System.track_rgbd` at
+   TUM1's configuration (a keyframe at least every 3 frames), each
+   frame's pose read as the call returns it: OK at frame 0, >= 95 %
+   tracked, at least one loop closed with the Sim3 scale exactly 1, the
+   keyframes' metric ATE after the loop and the GBA < 0.05 m with no
+   scale, the gather 1 launch a frame and the eigh kernel launched by
+   `sim3_ransac`; the loop pair, solvers, `_correct_loop` and GBA
+   dispatch ms recorded. The e2e phase (8.) also runs the four stereo and
+   RGB-D tests of tests/test_e2e.py with their bars;
 11. cli: the outer surface through the entry points a user calls, on
    datasets written with the port's PNG writer, with no OpenCV:
    `cli.run_slam` over a KITTI stereo layout of the depth
-   phase's wall (20 frames at configs/kitti00-02_stereo.yaml; the KITTI
+   phase's wall (12 frames at configs/kitti00-02_stereo.yaml; the KITTI
    file turned into TUM lines and scored by `cli.eval_traj`, ATE < 0.05 m
-   with no scale), over a TUM RGB-D layout (30 frames at TUM1's
+   with no scale), over a TUM RGB-D layout (20 frames at TUM1's
    configuration with the distortion zeroed, 3-channel PNGs, 16-bit depth
    at factor 5000; ATE < 0.05 m; `--viz-every 10`'s overlays and maps
    decode), and over the fork's fisheye-birdview layout (every
    `FrameRecord` equal to the render bit for bit after the front mask,
-   the origin crop and the 0.5× resize; 15 frames through the CLI, the
+   the origin crop and the 0.5× resize; 10 frames through the CLI, the
    trajectory, keyframe and odometry files written; tracking not held);
-   `cli.run_synthetic --mode bird --frames 40` (METRIC ATE < 0.05 m);
+   `cli.run_synthetic --mode bird --frames 20` (METRIC ATE < 0.05 m);
    `LiveViewer` on the system phase's `System` (/state, /frame); the
    native loader against the port's decoder. The gather's launches held
    to the path rule in every run;
@@ -113,7 +123,11 @@ Phases, each of which must pass (any failure exits non-zero):
    `pnp_ransac`, the two compacting mapping ops, `sim3_ransac`,
    `optimize_sim3_two_frame`, the three pose-graph solvers and
    `bundle_adjust_large` on small inputs on the CPU and on the GPU, which
-   must agree;
+   must agree; and the whole-image ORB API (`gaussian_blur7`, `ic_angle`
+   through the patch gather, `brief_descriptors`) on the slice's
+   full-width front frame and its keypoints: blur within 1e-3, angles
+   within 1e-4 rad, descriptors from the same angles bit-equal except in
+   windows where the two blurs round apart (such bits counted);
 14. small_linalg: the solvers' SVD and eigh kernels
    (`core/linalg.svd_small` / `eigh_small`, csrc/small_linalg.cu) against
    their plain versions at every site of tests/small_linalg_cases.py and
@@ -149,16 +163,18 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-N_FRAMES = 15            # seeded bird frames after the seed frame
+N_FRAMES = 10            # seeded bird frames after the seed frame
 N_MONO = 5               # seeded mono-only frames
 N_INIT_DRIVE = 14        # frames fed to initialization and tracked from it
 SYSTEM_FRAMES = 60       # frames fed to System
@@ -185,6 +201,9 @@ MAX_ROT_ERR_DEG = 0.3
 # CPU against GPU on the small input: the GPU's matmuls sum in another
 # order (blur, LM), so the same budgets as the CPU parity tests hold
 SMALL_POSE_TOL, SMALL_COUNT_TOL = 2e-3, 2
+# the whole-image ORB API, GPU against CPU: the 7×7 blur's sums in another
+# order (a few ulps of 255), atan2 of exact integer moments
+WHOLE_BLUR_TOL, WHOLE_ANGLE_TOL = 1e-3, 1e-4
 # Initialization on the drive. The JAX package's own run of the drive at
 # half size (tools/port_reference.py; PERF.md) initialized on the fourth
 # frame (keyframes 0 and 3) with 243 map points and 179 bird landmarks, its
@@ -286,8 +305,21 @@ RGBD_FRAMES = 60
 RGBD_WALL = dict(wall_z=2.0, step=0.01, push=0.002)     # TUM's hand pace
 MIN_DEPTH_TRACKED_SHARE = 0.95
 MAX_DEPTH_ATE_M = 0.05
+# the RGB-D revisit: tests/test_loop_closing.py's circle of 2π/120 rad a
+# frame inside a box room small enough for the walls in view to lie within
+# TUM1's close-depth threshold ThDepth·bf/fx = 3.1 m (the values of
+# tests/torch_circle_depth.py); the loop closes with the scale fixed at 1
+RGBD_CIRCLE_FRAMES = 142
+RGBD_CIRCLE = dict(speed=0.04, yaw_rate=2 * math.pi / 120, wall_x=2.4)
+# a keyframe at least every 3 frames (the tests' depth configurations,
+# tests/torch_midrun.py). The keyframe policy of both packages has no
+# depth-mode close-point trigger (ORB-SLAM2's bNeedToInsertClose): on a map
+# whose points carry one observation each it mints on max_frames alone, and
+# at 3° a frame TUM1's default of 30 frames outlasts the view
+RGBD_CIRCLE_MAX_FRAMES_BETWEEN_KF = 3
+MAX_RGBD_LOOP_ATE_M = 0.05
 # cli: frames of each CLI run, and the ATE bar of the scored runs
-CLI_FRAMES = dict(kitti=20, tum=30, fisheye=15, synthetic=40)
+CLI_FRAMES = dict(kitti=12, tum=20, fisheye=10, synthetic=20)
 MAX_CLI_ATE_M = 0.05
 # stereo_match / refine_stereo_subpixel, CPU against GPU on a small pair:
 # integer matches equal; uR from SAD sums in another order
@@ -556,6 +588,13 @@ def summarize(rows):
         max_rot_err_deg=max(r["rot_err_deg"] for r in rows))
 
 
+def render_frames(frame, n_frames):
+    """[frame(i) for i in range(n_frames)], rendered on a pool of host
+    threads (numpy releases the GIL in the large array operations)."""
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(frame, range(n_frames)))
+
+
 def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000,
                  **motion):
     """The drive every phase runs on: camera, BEV camera, extractor
@@ -572,7 +611,7 @@ def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000,
     cfg, bcfg = configs(features, features)
     t0 = time.perf_counter()
     seq = synth.BirdSequence(cam, bv, n_frames=n_frames, **motion)
-    frames = [seq.frame(i) for i in range(n_frames)]
+    frames = render_frames(seq.frame, n_frames)
     mask = synth.footprint_mask(bv)
     return dict(cam=cam, bv=bv, cfg=cfg, bcfg=bcfg, seq=seq, frames=frames,
                 mask=mask, render_s=time.perf_counter() - t0)
@@ -1021,10 +1060,68 @@ def check_floors(slice_rec):
               f"{name} rotation error {s['max_rot_err_deg']} deg")
 
 
-def reference_phase(dev):
+def whole_image_orb_reference(dev, img, cfg):
+    """The whole-image ORB API (`gaussian_blur7`, `ic_angle`,
+    `brief_descriptors`) on the GPU against the CPU, on a full-width front
+    frame and its extracted keypoints (level-0 pixels, rounded): blur
+    within WHOLE_BLUR_TOL, angles within WHOLE_ANGLE_TOL rad (the moments
+    are exact integers; atan2 may differ by an ulp), and the descriptors
+    from the same angle bit-equal except where the two blurs round to
+    different integers inside the keypoint's window (a blur on either side
+    of a .5 boundary): such bits are counted. On the card `ic_angle` runs
+    the patch-gather kernel (launches not counted: this is a comparison)."""
+    from orbslam_birdview_tpu_torch.frontend import orb
+
+    cpu = torch.device("cpu")
+    kp = orb.extract_orb(img, cfg, device="cpu")
+    valid = kp.valid.numpy()
+    xy = np.round(kp.xy.numpy()[valid]).astype(np.int32)
+    h, w = img.shape
+    inside = ((xy[:, 0] >= 0) & (xy[:, 0] < w) & (xy[:, 1] >= 0)
+              & (xy[:, 1] < h))
+    xs, ys = xy[inside, 0], xy[inside, 1]
+    out = {}
+    for d in (cpu, dev):
+        im = torch.as_tensor(img, device=d).float()
+        y_, x_ = torch.as_tensor(ys, device=d), torch.as_tensor(xs, device=d)
+        blur = orb.gaussian_blur7(im)
+        ang = orb.ic_angle(im, y_, x_)
+        out[d.type] = (blur, ang, y_, x_)
+    (cb, ca, cy, cx), (gb, ga, gy, gx) = out["cpu"], out[dev.type]
+    blur_err = float((gb.cpu() - cb).abs().max())
+    ang_d = (ga.cpu() - ca).abs()
+    ang_err = float(torch.minimum(ang_d, 2 * math.pi - ang_d).max())
+    check(blur_err <= WHOLE_BLUR_TOL,
+          f"gaussian_blur7: gpu and cpu differ by {blur_err}")
+    check(ang_err <= WHOLE_ANGLE_TOL,
+          f"ic_angle: gpu and cpu differ by {ang_err} rad")
+    # the same angles (the GPU's) on both sides: only the blur differs
+    dg = orb.brief_descriptors(gb, gy, gx, ga)
+    dc = orb.brief_descriptors(cb, cy, cx, ga.cpu())
+    diff_bits = np.unpackbits(dg.cpu().numpy() ^ dc.numpy(), axis=1).sum(1)
+    rounds_apart = (torch.round(gb.cpu()) != torch.round(cb)).numpy()
+    S = orb.BLUR_PATCH
+    pad = np.pad(rounds_apart, S // 2, mode="edge")
+    explained = np.array([pad[y:y + S, x:x + S].any()
+                          for y, x in zip(ys, xs)])
+    unexplained = int(((diff_bits > 0) & ~explained).sum())
+    check(unexplained == 0,
+          f"brief_descriptors: {unexplained} keypoints' bits differ with no "
+          "blur rounding apart in their window")
+    return dict(image=f"{w}x{h}", keypoints=int(len(xs)),
+                max_blur_err=blur_err, max_angle_err_rad=ang_err,
+                blur_pixels_rounded_apart=int(rounds_apart.sum()),
+                descriptor_bits_differing=int(diff_bits.sum()),
+                keypoints_with_bits_differing=int((diff_bits > 0).sum()),
+                tolerances=dict(blur=WHOLE_BLUR_TOL,
+                                angle_rad=WHOLE_ANGLE_TOL))
+
+
+def reference_phase(dev, front_img):
     """The step on a small input, on the CPU (plain versions) and on the
     GPU (kernels): the two must agree. Then `initialize_two_view` and
-    `bundle_adjust`, likewise."""
+    `bundle_adjust`, likewise; and the whole-image ORB API on the slice's
+    full-width front frame (`whole_image_orb_reference`)."""
     from orbslam_birdview_tpu_torch.core.camera import BirdviewCamera
     from orbslam_birdview_tpu_torch.utils import synth
 
@@ -1053,7 +1150,9 @@ def reference_phase(dev):
                 initialize_two_view=small_init_reference(dev),
                 bundle_adjust=small_ba_reference(dev),
                 pnp_ransac=small_pnp_reference(dev),
-                mapping_ops=small_mapping_ops_reference(dev))
+                mapping_ops=small_mapping_ops_reference(dev),
+                whole_image_orb=whole_image_orb_reference(dev, front_img,
+                                                          configs()[0]))
 
 
 def small_two_view(rng, n=300, nb=150):
@@ -1677,7 +1776,7 @@ def e2e_birdview_metric_scale(dev):
     cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
     cfg.tbc_t = tuple(seq.t_bc.tolist())
     system = make_system(cfg, dev)
-    gt, est = _run_sequence(system, (seq.frame(i) for i in range(35)), "bird")
+    gt, est = _run_sequence(system, render_frames(seq.frame, 35), "bird")
     ate = ate_rmse(est, gt, with_scale=False)
     d_est = np.linalg.norm(np.diff(est, axis=0), axis=1).sum()
     d_gt = np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()
@@ -1767,7 +1866,7 @@ def e2e_circular_loop_closure(dev):
                      sensor="mono_bird", birdview=bv)
     cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
     cfg.tbc_t = tuple(seq.t_bc.tolist())
-    frames = [seq.frame(i) for i in range(LOOP_FRAMES)]
+    frames = render_frames(seq.frame, LOOP_FRAMES)
     patch_kernel.LAUNCHES = 0
     rec = run_circle(make_system(cfg, dev), frames, None, seq, 1 / 25.0)
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
@@ -2234,7 +2333,133 @@ def depth_drive(name, dev):
                     ate_m_wall_in_view=MAX_DEPTH_ATE_M))
 
 
-def depth_phase_checks(rec):
+def render_rgbd_circle(cam, n_frames=RGBD_CIRCLE_FRAMES):
+    """The RGB-D revisit seen by `cam` with the port's `synth`: frames of
+    (image, exact depth in metres (camera z of the nearest wall, 0 where
+    none is hit), ground truth) and the `BirdSequence` of its poses."""
+    from orbslam_birdview_tpu_torch.core.camera import BirdviewCamera
+    from orbslam_birdview_tpu_torch.utils import synth
+
+    seq = synth.BirdSequence(cam, BirdviewCamera(width=64, height=64),
+                             n_frames=n_frames, **RGBD_CIRCLE)
+    us, vs = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                         np.arange(cam.height, dtype=np.float64))
+    def frame(i):
+        R_cw, t_cw = seq.gt_cam_pose(i)
+        img = synth.render_box_view(cam, seq.wall, R_cw, t_cw,
+                                    box_half=seq.wall_x)
+        R64 = R_cw.astype(np.float64)
+        t, wall = synth.cast_box_rays(-R64.T @ t_cw.astype(np.float64),
+                                      synth._camera_rays(cam, R64, us, vs),
+                                      seq.wall_x)
+        return img, np.where(wall >= 0, t, 0.0).astype(np.float32), (R_cw,
+                                                                     t_cw)
+
+    return seq, render_frames(frame, n_frames)
+
+
+def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
+                      read_poses=True):
+    """Fixed-scale loop closing end to end: the RGB-D revisit at TUM1's
+    configuration through `System.track_rgbd` (loop closing on) after one
+    `prewarm`, then `_flush`. The loop's keyframe pair, Sim3 scale, solvers
+    and `_correct_loop` ms, the GBA dispatch ms, the call ms, the gather's
+    launches (1 a frame) and the solver kernels' (eigh from `sim3_ransac`);
+    the keyframes' metric ATE after the loop and the GBA, no scale.
+    `read_poses=False` leaves each frame's pose unread until the drive
+    ends (tools/rgbd_circle_variants.py)."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    if cfg is None:
+        cfg = depth_config("rgbd")
+        cfg.tracking.max_frames_between_kf = RGBD_CIRCLE_MAX_FRAMES_BETWEEN_KF
+    t0 = time.perf_counter()
+    seq, frames = render_rgbd_circle(cfg.camera, n_frames)
+    render_s = time.perf_counter() - t0
+    system = make_system(cfg, dev)
+    system.prewarm()
+    obs = watch_loop(system, seq)
+    GLOBAL_TIMER.reset()
+    patch_kernel.LAUNCHES = 0
+    linalg_launches(reset=True)
+    fds, call_ms = [], []
+    dt = 1.0 / cfg.fps
+    for i, (img, depth, _) in enumerate(frames):
+        sync(dev)
+        t_call = time.perf_counter()
+        fds.append(system.track_rgbd(img, depth, i * dt))
+        if read_poses:
+            # each frame's pose read as the call returns it, as
+            # tests/test_e2e.py's run_sequence does (it finalizes the frame)
+            fds[-1].pose_ok
+        sync(dev)
+        call_ms.append((time.perf_counter() - t_call) * 1e3)
+    system._flush()
+    ok = [fd.pose_ok for fd in fds]
+    launches = patch_kernel.LAUNCHES
+    small_linalg = linalg_launches()
+    rule = launch_rule(system, launches, n_frames, 1, 1, dev, "rgbd_circle")
+    lc, store, mapper = system.loop_closer, system.store, system.mapper
+    loops = [{k: (float(v) if isinstance(v, (float, np.floating)) else v)
+              for k, v in r.items()} for r in lc.loop_log]
+    gba_ms = GLOBAL_TIMER.samples.get("map.gba_dispatch", [])
+    cam = cfg.camera
+    return dict(
+        config="configs/tum1_rgbd.yaml (distortion zeroed), a keyframe at "
+               "least every 3 frames",
+        image=f"{cam.width}x{cam.height}", features=cfg.orb.n_features,
+        depth_threshold_m=cfg.depth_threshold,
+        max_frames_between_kf=cfg.tracking.max_frames_between_kf,
+        poses_read_per_frame=read_poses,
+        circle=dict(RGBD_CIRCLE, frames=n_frames), render_s=render_s,
+        frames_fed=n_frames, init_frame=ok.index(True) if any(ok) else None,
+        tracked=int(sum(ok)), tracked_share=float(np.mean(ok)),
+        keyframes_minted=int(store.n_kf),
+        keyframes_alive=int(store.kf_valid.sum()),
+        loops_closed=lc.n_loops_closed, loops=loops,
+        loop_frames=[[int(store.kf_frame_id[r[k]]) for k in ("kf", "cand")]
+                     for r in loops],
+        loop_edges=[list(map(int, e)) for e in store.loop_edges],
+        gba=dict(problem=dict(mapper.last_gba),
+                 rounds_landed=obs["gba_landed"],
+                 dispatched=mapper.stats["gba_dispatched"],
+                 dropped=mapper.stats["gba_dropped"],
+                 dispatch_ms=[float(x * 1e3) for x in gba_ms]),
+        ate_before_gba_m=obs.get("ate_before_gba_m"),
+        ate_m=keyframe_ate(store, seq),
+        call_ms=dict(first_call=call_ms[0], all=wall_stats(call_ms[1:]),
+                     slowest_frame=int(np.argmax(call_ms)),
+                     note="host clock around each track_rgbd call and the "
+                          "read of its pose, with a device sync after it; "
+                          "frame 0 pays the initialization"),
+        small_linalg_launches=small_linalg, **rule,
+        floors=dict(init_frame=0, tracked_share=MIN_DEPTH_TRACKED_SHARE,
+                    loops=1, scale=1.0, ate_m=MAX_RGBD_LOOP_ATE_M))
+
+
+def rgbd_circle_checks(r, dev):
+    check(r["init_frame"] == 0, f"rgbd_circle: OK at frame {r['init_frame']}")
+    check(r["tracked_share"] >= MIN_DEPTH_TRACKED_SHARE,
+          f"rgbd_circle: tracked {r['tracked']} of {r['frames_fed']}")
+    check(r["loops_closed"] >= 1,
+          f"rgbd_circle: no loop closed ({r['loops']})")
+    check(all(lp["scale"] == 1.0 for lp in r["loops"]),
+          f"rgbd_circle: a loop's Sim3 scale is not 1: {r['loops']}")
+    check(r["gba"]["rounds_landed"] >= 1,
+          f"rgbd_circle: {r['gba']['rounds_landed']} GBA rounds landed")
+    check(r["ate_m"] < MAX_RGBD_LOOP_ATE_M,
+          f"rgbd_circle: metric ATE {r['ate_m']} m after the loop and the "
+          "GBA")
+    if dev.type == "cuda":
+        # the RGB-D initialization runs no two-view solver: the path's
+        # solver kernel is Sim3's eigh
+        check_linalg_launches(r["small_linalg_launches"], [EIGH_KERNEL],
+                              "rgbd_circle")
+
+
+def depth_phase_checks(rec, dev):
+    rgbd_circle_checks(rec["rgbd_circle"], dev)
     for name in ("stereo", "rgbd"):
         r = rec[name]
         check(r["init_frame"] == 0, f"{name}: OK at frame {r['init_frame']}")
@@ -2287,7 +2512,8 @@ def depth_phase(dev):
     """The two depth drives, the gather at the KITTI stereo frame's shapes,
     and the CPU-against-GPU stereo check."""
     rec = dict(stereo=depth_drive("stereo", dev), rgbd=depth_drive("rgbd",
-                                                                  dev))
+                                                                  dev),
+               rgbd_circle=rgbd_circle_drive(dev))
     if dev.type == "cuda":
         cfg = depth_config("stereo")
         seq, frames, _ = render_depth_drive("stereo", cfg, 2, STEREO_WALL)
@@ -3660,7 +3886,7 @@ def main() -> int:
         depth_rec.update(depth_phase(dev))
     finally:
         write_record()
-    depth_phase_checks(depth_rec)
+    depth_phase_checks(depth_rec, dev)
     # the outer surface: dataset CLI, scorer, synthetic runner, viewer
     cli_rec = dict(card=card)
     full["cli"] = cli_rec
@@ -3691,6 +3917,8 @@ def main() -> int:
                         "patch_gather_launches"],
                     depth_stereo=depth_rec["stereo"]["patch_gather_launches"],
                     depth_rgbd=depth_rec["rgbd"]["patch_gather_launches"],
+                    depth_rgbd_circle=depth_rec["rgbd_circle"][
+                        "patch_gather_launches"],
                     e2e_depth=system_rec["e2e"][
                         "depth_patch_gather_launches"],
                     **{f"cli_{k}": cli_rec[k]["patch_gather_launches"]
@@ -3710,7 +3938,8 @@ def main() -> int:
                         dev, slice_rec["bird"]["median_step_ms"])
     slice_rec["profile"] = {k: v for k, v in prof.items() if k != "top"}
     full["frames"]["profile_top"] = prof["top"]
-    slice_rec["small_reference"] = reference_phase(dev)
+    slice_rec["small_reference"] = reference_phase(dev,
+                                                   drive["frames"][0][0])
     loop_rec["small_reference"] = small_loop_reference(dev)
     # the solvers' SVD and eigh kernels against their plain versions
     small_rec = dict(card=card)
@@ -3722,7 +3951,8 @@ def main() -> int:
     solver_kernels = solver_kernel_lines(
         small_rec["kernels"], init=init_rec["small_linalg_launches"],
         relocalization=system_rec["relocalization"]["small_linalg_launches"],
-        loop=loop_rec["circle"]["small_linalg_launches"])
+        loop=loop_rec["circle"]["small_linalg_launches"],
+        rgbd_circle=depth_rec["rgbd_circle"]["small_linalg_launches"])
     loop_rec["script_s"] = time.perf_counter() - t_start
     write_record()
 

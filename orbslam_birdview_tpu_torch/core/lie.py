@@ -121,6 +121,25 @@ def se3_inv(R, t):
     return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
 
 
+def se3_apply(R, t, p):
+    """Transform points p (…,3) by (R,t)."""
+    return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def se3_matrix(R, t):
+    """(R,t) -> (…,4,4) homogeneous matrix, in R's dtype and on its
+    device."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 0, 3] = 1.0
+    top = torch.cat([R, t[..., None]], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
 def se3_update_left(R, t, xi):
     """T <- exp(xi) T — the reference's VertexSE3Quat::oplusImpl."""
     dR, dt = se3_exp(xi)

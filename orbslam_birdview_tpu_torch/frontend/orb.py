@@ -130,8 +130,23 @@ def _const(name: str, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# Pyramid
+# Pyramid + blur
 # ---------------------------------------------------------------------------
+
+def _gauss7() -> np.ndarray:
+    """The 7 taps of the Gaussian with sigma=2, normalized, in f32."""
+    k1 = np.array([np.exp(-(i * i) / (2 * 2.0 ** 2)) for i in range(-3, 4)])
+    return (k1 / k1.sum()).astype(np.float32)
+
+
+def gaussian_blur7(img):
+    """7x7 Gaussian, sigma=2, reflect-101 border — cv::GaussianBlur parity.
+    Separable: along rows, then along columns."""
+    k = torch.from_numpy(_gauss7()).to(img.device)
+    x = F.pad(img[None, None], (3, 3, 3, 3), mode="reflect")
+    x = F.conv2d(x, k.reshape(1, 1, 1, 7))
+    return F.conv2d(x, k.reshape(1, 1, 7, 1))[0, 0]
+
 
 @functools.lru_cache(maxsize=None)
 def _resize_taps(n_out: int, n_in: int, device: torch.device):
@@ -314,8 +329,7 @@ def extract_patches_levels(imgs, ys_levels, xs_levels, size: int = PATCH):
 def _blur_matrix(n_in: int, device: torch.device):
     """Banded (n_in−6, n_in) matrix applying the 7-tap Gaussian (sigma=2)
     as a VALID 1-D convolution."""
-    k1 = np.array([np.exp(-(i * i) / (2 * 2.0 ** 2)) for i in range(-3, 4)])
-    k1 = (k1 / k1.sum()).astype(np.float32)
+    k1 = _gauss7()
     n_out = n_in - 6
     B = np.zeros((n_out, n_in), np.float32)
     for j in range(7):
@@ -360,6 +374,25 @@ def brief_from_patches(patches_blur, angle):
     pb = torch.round(patches_blur).reshape(K, S * S)
     samp = torch.gather(pb, 1, row * S + col)
     return pack_bits(samp[:, :256] < samp[:, 256:])
+
+
+def ic_angle(img, ys, xs):
+    """Intensity-centroid orientation (K,) at integer coords (K,) of a
+    whole image, through the patch path: on a CUDA tensor `extract_patches`
+    launches the patch-gather kernel once."""
+    return ic_angle_from_patches(extract_patches(img, ys, xs))
+
+
+def brief_descriptors(img_blur, ys, xs, angle):
+    """Steered BRIEF-256 at integer coords on an already-blurred image:
+    the (K, BLUR_PATCH, BLUR_PATCH) windows of the edge-padded image,
+    centred at BLUR_C, through `brief_from_patches`."""
+    S = BLUR_PATCH
+    padded = _pad_for_patches(img_blur, S)
+    r = torch.arange(S, device=img_blur.device)
+    rows = ys.to(torch.int64)[:, None, None] + r[None, :, None]
+    cols = xs.to(torch.int64)[:, None, None] + r[None, None, :]
+    return brief_from_patches(padded[rows, cols], angle)
 
 
 def _subpixel_offsets(resp, ys, xs):

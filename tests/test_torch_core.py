@@ -90,6 +90,39 @@ def test_se3_binary_parity(rng, name):
     _close(ref[1], out[1], atol=ATOL_V if name in _USES_V else ATOL)
 
 
+@pytest.mark.parametrize("name", ["se3_apply", "se3_matrix",
+                                  "se3_from_matrix"])
+def test_se3_matrix_helpers_parity(rng, name):
+    """Batched over two leading axes (points over poses for `se3_apply`);
+    the port keeps its inputs' dtype and device."""
+    R = _rotations(rng, 48).reshape(4, 12, 3, 3)
+    t = rng.normal(size=(4, 12, 3)).astype(np.float32)
+    p = rng.normal(size=(4, 12, 3)).astype(np.float32)
+    T = np.asarray(jlie.se3_matrix(jnp.asarray(R), jnp.asarray(t)))
+    args = {"se3_apply": (R, t, p), "se3_matrix": (R, t),
+            "se3_from_matrix": (T,)}[name]
+    ref = getattr(jlie, name)(*map(jnp.asarray, args))
+    out = getattr(tlie, name)(*map(torch.from_numpy, args))
+    for a, b in zip(ref if isinstance(ref, tuple) else (ref,),
+                    out if isinstance(out, tuple) else (out,)):
+        assert b.dtype == torch.float32 and b.shape == a.shape
+        _close(a, b)
+
+
+def test_se3_apply_matches_matrix(rng):
+    """tests/test_lie.py's check on the port: applying (R, t) equals the
+    homogeneous 4×4 product."""
+    xi = rng.normal(size=(6,)).astype(np.float32)
+    R, t = tlie.se3_exp(torch.from_numpy(xi))
+    p = torch.from_numpy(rng.normal(size=(10, 3)).astype(np.float32))
+    T = tlie.se3_matrix(R, t)
+    ph = torch.cat([p, torch.ones(10, 1)], dim=1)
+    np.testing.assert_allclose(tlie.se3_apply(R, t, p).numpy(),
+                               (ph @ T.T)[:, :3].numpy(), atol=1e-5)
+    R2, t2 = tlie.se3_from_matrix(T)
+    assert torch.equal(R2, R) and torch.equal(t2, t)
+
+
 @pytest.mark.parametrize("fn", ["so3_exp", "se3_exp"])
 def test_gradients_finite_at_identity(fn):
     x = torch.zeros(3 if fn == "so3_exp" else 6, requires_grad=True)

@@ -35,12 +35,14 @@ import pytest
 import torch
 
 import torch_midrun as mid
+from test_torch_loop_closing import share_draws
 from orbslam_birdview_tpu.core import lie as jlie
 from orbslam_birdview_tpu.frontend.keypoints import Keypoints as JKeypoints
 from orbslam_birdview_tpu.graph import ba as jba
 from orbslam_birdview_tpu.graph import sim3_opt as jsim3_opt
 from orbslam_birdview_tpu.mapping.mapstore import MapStore as JMapStore
 from orbslam_birdview_tpu.pipeline import local_mapping as jlm
+from orbslam_birdview_tpu.pipeline import loop_closing as jlc
 from orbslam_birdview_tpu.pipeline import tracking as jtr
 from orbslam_birdview_tpu.pipeline.frame import FrameData as JFrameData
 from orbslam_birdview_tpu.solvers import sim3 as jsim3
@@ -49,6 +51,7 @@ from orbslam_birdview_tpu_torch.graph import ba, sim3_opt
 from orbslam_birdview_tpu_torch.mapping.mapstore import MapStore
 from orbslam_birdview_tpu_torch.parallel import runtime
 from orbslam_birdview_tpu_torch.pipeline import local_mapping as lm
+from orbslam_birdview_tpu_torch.pipeline import loop_closing as lc
 from orbslam_birdview_tpu_torch.pipeline import state, tracking
 from orbslam_birdview_tpu_torch.solvers import sim3
 
@@ -402,6 +405,80 @@ def test_loop_sim3_solvers_fixed_scale():
                                    atol=BA_POSE_TOL)
     assert float(got[2]) == float(ref[2]) == 1.0
     np.testing.assert_allclose(got[1].numpy(), t_gt, atol=0.01)
+
+
+def depth_closers(m):
+    """A JAX and a port LoopCloser on the RGB-D moment's map after the
+    flush, each on its own copy, the port's RANSAC given the JAX
+    closer's draws (`test_torch_loop_closing.share_draws`). No
+    vocabulary: the Sim3 and the correction do not query the database."""
+    ps, js = mid.copy_store(m["store"]), mid.jax_store(m["store"])
+    jl = jlc.LoopCloser(m["jcfg"], js, jlm.LocalMapper(m["jcfg"], js))
+    pl = lc.LoopCloser(m["cfg"], ps, lm.LocalMapper(m["cfg"], ps,
+                                                    device="cpu"))
+    share_draws(jl, pl)
+    return jl, pl
+
+
+def fixed_scale_loop(jl, pl):
+    """The newest keyframe's Sim3 to the oldest keyframe it shares points
+    with, in both packages: the same accept or reject for every candidate
+    tried, oldest first."""
+    store = jl.store
+    kf = int(store.valid_kf_ids()[-1])
+    for cand in sorted(int(c) for c in store.covisible_kfs(kf, min_weight=1)):
+        jr, pr = jl._compute_sim3(kf, cand), pl._compute_sim3(kf, cand)
+        assert (jr is None) == (pr is None), cand
+        if jr is not None:
+            return kf, cand, jr, pr
+    raise AssertionError("no Sim3 found to any covisible keyframe")
+
+
+def test_loop_compute_sim3_fixed_scale(moment):
+    """`_compute_sim3` on the RGB-D map, where the closer fixes the
+    scale: the same loop points, R and t within 1e-4, s exactly 1."""
+    jl, pl = depth_closers(moment)
+    kf, cand, (jS, jpts), (pS, ppts) = fixed_scale_loop(jl, pl)
+    assert cand < kf
+    np.testing.assert_allclose(pS[0], np.asarray(jS[0]), atol=BA_POSE_TOL)
+    np.testing.assert_allclose(pS[1], np.asarray(jS[1]), atol=BA_POSE_TOL)
+    assert pS[2] == float(jS[2]) == 1.0
+    np.testing.assert_array_equal(ppts, jpts)
+    assert pl._last_sim3["scale"] == 1.0 and len(ppts) >= 40
+
+
+@pytest.mark.parametrize("offset", [0.0, 0.1], ids=["as-found", "shifted"])
+def test_loop_correct_fixed_scale(moment, offset):
+    """`_correct_loop` from the JAX package's fixed-scale Sim3 (and from
+    it with 0.1 m more translation, so the map really moves): poses within
+    1e-3, points within 1e-3 m, the same fused observations; the port's
+    one-device dense graph against the JAX package's sharded one, as
+    test_torch_loop_closing.py's `test_correct_loop`."""
+    jl, pl = depth_closers(moment)
+    kf, cand, (jS, jpts), _ = fixed_scale_loop(jl, pl)
+    S = (np.asarray(jS[0]), (np.asarray(jS[1])
+                             + np.float32([offset, 0, 0])).astype(np.float32),
+         float(jS[2]))
+    gba = []
+    for closer in (jl, pl):
+        closer._global_ba = lambda k, gba=gba: gba.append(k)
+        closer._correct_loop(kf, cand, S, jpts)
+    assert gba == [kf, kf]
+    ps, js = pl.store, jl.store
+    assert ps.loop_edges == js.loop_edges == [(cand, kf)]
+    np.testing.assert_array_equal(ps.kf_kp_mp, js.kf_kp_mp)
+    np.testing.assert_allclose(ps.kf_R, js.kf_R, atol=MAP_POSE_TOL)
+    np.testing.assert_allclose(ps.kf_t, js.kf_t, atol=MAP_POSE_TOL)
+    live = js.mp_valid
+    np.testing.assert_array_equal(ps.mp_valid, live)
+    np.testing.assert_allclose(ps.mp_pos[live], js.mp_pos[live],
+                               atol=MAP_POSE_TOL, rtol=0)
+    rec = pl.loop_log[-1]
+    assert rec["solver"] == "dense" and rec["scale"] == 1.0
+    assert rec["cost_after"] <= rec["cost_before"]
+    if offset:
+        before = moment["store"]
+        assert np.abs(ps.kf_t[kf] - before.kf_t[kf]).max() > 0.02
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ budget for them:
 - the 7×7 patch blur before BRIEF's integer comparisons, and atan2 of the
   orientation, which differ by an ulp.
 """
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +122,88 @@ def test_brief_exact_with_injected_angles(rng):
     ref = jorb.brief_from_patches(jnp.asarray(blurred), jnp.asarray(angle))
     out = torb.brief_from_patches(_t(blurred), _t(angle))
     np.testing.assert_array_equal(out.numpy(), _n(ref))
+
+
+# ---------------------------------------------------------------------------
+# the whole-image API (gaussian_blur7, ic_angle, brief_descriptors): the JAX
+# package's functions on the same image and keypoints, and the OpenCV bars
+# of tests/test_frontend.py beside them
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cv_image():
+    """tests/test_frontend.py's procedural image with corners."""
+    r = np.random.default_rng(7)
+    img = r.uniform(0, 60, size=(240, 320)).astype(np.float32)
+    for _ in range(40):
+        y, x = r.integers(20, 200), r.integers(20, 280)
+        h, w = r.integers(8, 30), r.integers(8, 30)
+        img[y:y + h, x:x + w] += r.uniform(60, 180)
+    img = cv2.GaussianBlur(np.clip(img, 0, 255), (3, 3), 0.8)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _cv_keypoints(img_u8, **orb_kw):
+    """Level-0 keypoints of cv2's ORB detector as int (ys, xs)."""
+    kps = cv2.ORB_create(nlevels=1, **orb_kw).detect(img_u8, None)
+    kps = [k for k in kps if k.octave == 0]
+    ys = np.array([int(round(k.pt[1])) for k in kps], np.int32)
+    xs = np.array([int(round(k.pt[0])) for k in kps], np.int32)
+    return kps, ys, xs
+
+
+def test_gaussian_blur7_parity(cv_image):
+    img = cv_image.astype(np.float32)
+    ref = _n(jorb.gaussian_blur7(jnp.asarray(img)))
+    out = torb.gaussian_blur7(_t(img)).numpy()
+    assert out.shape == ref.shape == img.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    cv = cv2.GaussianBlur(img, (7, 7), 2, borderType=cv2.BORDER_REFLECT_101)
+    np.testing.assert_allclose(out, cv, atol=0.05)
+
+
+def test_ic_angle_whole_image_parity(cv_image):
+    kps, ys, xs = _cv_keypoints(cv_image, nfeatures=100, edgeThreshold=31,
+                                fastThreshold=25)
+    assert len(kps) >= 10
+    img = cv_image.astype(np.float32)
+    ref = _n(jorb.ic_angle(jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs)))
+    out = torb.ic_angle(_t(img), _t(ys), _t(xs)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    diff = np.abs(((np.degrees(out) - np.array([k.angle for k in kps]))
+                   + 180) % 360 - 180)
+    assert np.median(diff) < 2.0, f"median angle diff {np.median(diff)}"
+
+
+def test_brief_descriptors_parity(cv_image):
+    """The same bits as the JAX package from the JAX package's blur and
+    angles, and from each package's own; cv2.ORB.compute within the JAX
+    test's borderline-bit budget."""
+    det = cv2.FastFeatureDetector_create(threshold=25, nonmaxSuppression=True)
+    kps = [k for k in det.detect(cv_image, None)
+           if 25 < k.pt[0] < 295 and 25 < k.pt[1] < 215][:50]
+    assert len(kps) >= 20
+    ys = np.array([int(round(k.pt[1])) for k in kps], np.int32)
+    xs = np.array([int(round(k.pt[0])) for k in kps], np.int32)
+    img = cv_image.astype(np.float32)
+    jblur = jorb.gaussian_blur7(jnp.asarray(img))
+    jang = jorb.ic_angle(jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs))
+    ref = _n(jorb.brief_descriptors(jblur, jnp.asarray(ys), jnp.asarray(xs),
+                                    jang))
+    got = torb.brief_descriptors(_t(_n(jblur)), _t(ys), _t(xs), _t(_n(jang)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    blur = torb.gaussian_blur7(_t(img))
+    ang = torb.ic_angle(_t(img), _t(ys), _t(xs))
+    own = torb.brief_descriptors(blur, _t(ys), _t(xs), ang).numpy()
+    np.testing.assert_array_equal(own, ref)
+    for k, a in zip(kps, ang.numpy()):
+        k.angle, k.octave = float(np.degrees(a)), 0
+        k.pt = (float(round(k.pt[0])), float(round(k.pt[1])))
+    kps_out, desc_cv = cv2.ORB_create(nlevels=1, edgeThreshold=0).compute(
+        cv_image, kps)
+    assert desc_cv is not None and len(kps_out) == len(kps)
+    ham = np.unpackbits(own ^ desc_cv, axis=1).sum(1)
+    assert np.median(ham) <= 8 and np.mean(ham) <= 16, ham
 
 
 # ---------------------------------------------------------------------------
