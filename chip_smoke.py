@@ -1366,11 +1366,12 @@ def make_system(cfg, dev):
 
 
 def stage_counts(system):
-    """Sample counts of the tracker's and the mapper's stage timers."""
-    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
-    out = {k: len(v) for k, v in system.tracker.timer.samples.items()}
-    out.update({k: len(v) for k, v in GLOBAL_TIMER.samples.items()})
-    return out
+    """Sample counts of the host stages of the System's span record
+    (tracker and mapper); device spans land when they are read, not in
+    the call that ran them."""
+    rec = system.timer
+    return {k: len(v) for k, v in rec.samples.items()
+            if k not in rec.device_names}
 
 
 def wall_stats(ms):
@@ -1451,7 +1452,6 @@ def system_phase(drive, dev):
     camera frame (the map's world); nothing is aligned in scale."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.pipeline import tracking
-    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
 
     seq, frames, mask = drive["seq"], drive["frames"], drive["mask"]
     cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
@@ -1461,7 +1461,7 @@ def system_phase(drive, dev):
     n_warm = system.prewarm()
     sync(dev)
     prewarm_s = time.perf_counter() - t0
-    GLOBAL_TIMER.reset()
+    system.timer.reset()
     patch_kernel.LAUNCHES = 0
     fds, call_ms, mapping_call = [], [], []
     for i, (img, bev, _) in enumerate(frames):
@@ -1493,8 +1493,7 @@ def system_phase(drive, dev):
            for i in range(len(frames))]
     err = trajectory_errors(fds[first:], gts[first:])
     after_init = ok[first:]
-    timer = dict(tracker.timer.samples)
-    timer.update(GLOBAL_TIMER.samples)
+    timer = system.timer.samples
     stages = {k: dict(n=len(timer.get(k, [])),
                       total_ms=float(np.sum(timer.get(k, [0.0])) * 1e3),
                       median_ms=(float(np.median(timer[k]) * 1e3)
@@ -1526,7 +1525,7 @@ def system_phase(drive, dev):
         fallback_frames=counters.get("track.fallback", 0),
         relocalizations=counters.get("reloc.ok", 0),
         realized_summary_batches=tracker.batch_stats,
-        forced_retire_s=tracker.forced_block_s,
+        forced_retire_s=float(sum(timer.get("fused.retire", []))),
         **err,
         call_ms=dict(
             note="host clock around each track_* call with a device sync "
@@ -1614,10 +1613,8 @@ def profile_mapping(system, dev):
 def run_circle(system, frames, mask, seq, dt):
     """The circle through `track_monocular_with_birdview`, then `_flush`;
     the loop's record."""
-    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
-
     obs = watch_loop(system, seq)
-    GLOBAL_TIMER.reset()
+    system.timer.reset()
     t0 = time.perf_counter()
     fds = [system.track_monocular_with_birdview(img, bev, mask, i * dt)
            for i, (img, bev, _) in enumerate(frames)]
@@ -1626,7 +1623,7 @@ def run_circle(system, frames, mask, seq, dt):
     lc, store = system.loop_closer, system.store
     stages = {k: dict(n=len(v), median_ms=float(np.median(v) * 1e3),
                       total_ms=float(np.sum(v) * 1e3))
-              for k, v in GLOBAL_TIMER.samples.items()
+              for k, v in system.timer.samples.items()
               if k in ("map.loop", "map.gba_dispatch", "map.gba_apply")}
     return dict(frames=len(frames), tracked=int(sum(fd.pose_ok for fd in fds)),
                 keyframes_alive=int(store.kf_valid.sum()),
@@ -2266,7 +2263,6 @@ def depth_drive(name, dev):
     patch-gather count. Ground truth in the first keyframe's camera frame
     (the map's world)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
 
     cfg = depth_config(name)
     n_frames, wall = ((STEREO_FRAMES, STEREO_WALL) if name == "stereo"
@@ -2274,7 +2270,7 @@ def depth_drive(name, dev):
     seq, frames, render = render_depth_drive(name, cfg, n_frames, wall)
     system = make_system(cfg, dev)
     system.prewarm()
-    GLOBAL_TIMER.reset()
+    system.timer.reset()
     patch_kernel.LAUNCHES = 0
     fds, call_ms = [], []
     dt = 1.0 / cfg.fps
@@ -2369,7 +2365,6 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     `read_poses=False` leaves each frame's pose unread until the drive
     ends (tools/rgbd_circle_variants.py)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.utils.profiling import GLOBAL_TIMER
 
     if cfg is None:
         cfg = depth_config("rgbd")
@@ -2380,7 +2375,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     system = make_system(cfg, dev)
     system.prewarm()
     obs = watch_loop(system, seq)
-    GLOBAL_TIMER.reset()
+    system.timer.reset()
     patch_kernel.LAUNCHES = 0
     linalg_launches(reset=True)
     fds, call_ms = [], []
@@ -2403,7 +2398,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     lc, store, mapper = system.loop_closer, system.store, system.mapper
     loops = [{k: (float(v) if isinstance(v, (float, np.floating)) else v)
               for k, v in r.items()} for r in lc.loop_log]
-    gba_ms = GLOBAL_TIMER.samples.get("map.gba_dispatch", [])
+    gba_ms = system.timer.samples.get("map.gba_dispatch", [])
     cam = cfg.camera
     return dict(
         config="configs/tum1_rgbd.yaml (distortion zeroed), a keyframe at "

@@ -10,6 +10,10 @@ Loop closing is on by default, with the packaged vocabulary
 the tracker row-matches against the left one; `track_rgbd` takes a depth
 image in metres (<= 0 where there is none).
 
+One span record (`utils.profiling.StageTimer`, `System.timer`) serves the
+tracker, the mapper and the loop closer, and outlives `reset`; each
+`track_*` call is one frame of it, numbered from 0 in call order.
+
 `mesh` (a `parallel.runtime.Mesh`) shards the full-map BA and the
 essential graph over its devices; without one, both run on `device`
 alone. Sharding is asked for, never assumed from the GPUs a machine
@@ -32,6 +36,7 @@ from ..parallel import runtime
 from ..pipeline.local_mapping import LocalMapper
 from ..pipeline.loop_closing import LoopCloser
 from ..pipeline.tracking import LOST, Tracker
+from ..utils.profiling import StageTimer
 from .config import SlamConfig
 
 DEFAULT_VOCABULARY = os.path.join(
@@ -67,6 +72,7 @@ class System:
         if enable_loop_closing and vocabulary is None:
             vocabulary = _load_default_vocabulary(cfg)
         self.vocab_load_ms = (time.perf_counter() - t0) * 1e3
+        self.timer = StageTimer()
         self.loop_closer = None
         self._build(self._make_store(cfg), vocabulary)
         self.localization_only = False
@@ -82,9 +88,9 @@ class System:
         keyframes to its database (a loaded map)."""
         self.store = store
         self.mapper = LocalMapper(self.cfg, store, device=self.device,
-                                  mesh=self.mesh)
+                                  mesh=self.mesh, timer=self.timer)
         self.tracker = Tracker(self.cfg, store, self.mapper,
-                               device=self.device)
+                               device=self.device, timer=self.timer)
         if not self.enable_loop_closing:
             return
         self.loop_closer = LoopCloser(self.cfg, store, self.mapper,
@@ -149,6 +155,7 @@ class System:
                 self.deactivate_localization_mode()
 
     def _track(self, img, timestamp, **kw):
+        self.timer.begin_frame()
         self._apply_deferred_requests()
         self.tracker.only_tracking = self.localization_only
         fd = self.tracker.process(np.asarray(img), timestamp, **kw)
@@ -185,9 +192,14 @@ class System:
 
     def prewarm(self) -> int:
         """Run the local-BA bucket ladder once before the first frame, so
-        the library set-up it pays lands before the frame stream. Returns
-        the number of problems run."""
-        return self.mapper.prewarm()
+        the library set-up it pays lands before the frame stream, and
+        anchor the span record's device clock. Returns the number of
+        problems run."""
+        n = self.mapper.prewarm()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self.timer.anchor_device(self.device)
+        return n
 
     # ------------------------------------------------------------------
     # map checkpoint / resume (the store's file format, shared with the

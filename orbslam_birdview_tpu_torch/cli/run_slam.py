@@ -41,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--realtime", action="store_true",
                     help="pace frames by dataset timestamp deltas")
     ap.add_argument("--timing", action="store_true",
-                    help="print the per-stage timing summary at exit")
+                    help="print the System's span record at exit: each "
+                         "host stage and device span, and the counters")
     ap.add_argument("--profile-trace", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run "
                          "(DIR/trace.json, Chrome trace format)")
@@ -178,7 +179,9 @@ def main(argv=None):
                 os.path.splitext(args.out_kf)[0] + "_odom.txt")
     print(f"saved trajectory to {args.out}")
     if args.timing:
-        print(profiling.GLOBAL_TIMER.summary())
+        # the System's span record: tracker, mapper and loop-closer
+        # stages, and the device spans (CUDA only)
+        print(sys_.timer.summary())
     if viewer is not None:
         viewer.stop()
     return dict(frames=n, times_s=times.tolist(), system=sys_)

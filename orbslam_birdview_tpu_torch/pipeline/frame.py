@@ -18,6 +18,9 @@ class FrameData:
     R: np.ndarray                    # Tcw rotation (3,3)
     t: np.ndarray                    # Tcw translation (3,)
     kp_mp: np.ndarray                # (K,) int64 map-point id per keypoint or -1
+    # the System's call number that handed the frame in: the frame of its
+    # spans and marks in the System's span record (-1 outside a System)
+    call: int = -1
     # stereo / RGB-D: numpy, or device tensors on a fused frame until they
     # ride home with its keyframe batch
     kp_depth: Optional[np.ndarray] = None   # (K,) depth or -1
@@ -56,6 +59,9 @@ class FrameData:
     # synchronizes (finalizes the frame), so a caller that reads the pose
     # per frame gets it; callers that ignore it keep full pipelining
     _finalize_cb: Optional[object] = None
+    # a fused frame's device span of its tracking step
+    # (`utils.profiling.DeviceSpan`; None on the CPU)
+    _step_span: Optional[object] = None
 
     @property
     def pose_ok(self) -> bool:

@@ -13,6 +13,11 @@ also extracts BEV ORB, matches the ground-landmark bundle by projection
 under each pose estimate, and adds bird point-to-point edges to both pose
 optimizations. The step issues no host sync: the host reads the 16-float
 `summary` when it wants it.
+
+Given the System's span record, the step times its host side in three
+spans: `step.extract` (the front, BEV and right-image extraction, and the
+stereo match), `step.match` (the Hamming matrices and every matching
+stage) and `step.pose_lm` (each of the two pose optimizations).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from .. import resolve_device
 from ..frontend import matcher, orb, stereo
 from ..frontend.keypoints import Keypoints, unpack_bits_to_pm1
 from ..graph import pose_opt
+from ..utils.profiling import optional_stage
 from . import device_ops
 
 
@@ -150,6 +156,7 @@ def track_step_mono(
     img_right=None,    # (H,W) right stereo image
     bf: float = 0.0,   # stereo baseline·fx
     device=None,
+    record=None,       # the System's span record (utils.profiling)
 ) -> FusedOutput:
     """One fused tracking step on `device` (`cuda` unless given). When
     (R_last, t_last) are given, the step also emits the motion-model
@@ -161,129 +168,144 @@ def track_step_mono(
     extracted in the step and row-matched against the tracking keypoints.
     Either way `kp_depth` / `kp_ur` stay on the device."""
     dev = resolve_device(device)
-    img = torch.as_tensor(img, dtype=torch.float32, device=dev)
     (R_pred, t_pred, scale_factors, inv_sigma2, R_last, t_last, vis_acc,
      found_acc) = _device_tensors(dev, R_pred, t_pred, scale_factors,
                                   inv_sigma2, R_last, t_last, vis_acc,
                                   found_acc)
     lm = LocalMapDevice(*_device_tensors(dev, *lm))
+    have_bird = bird_img is not None and bird_lm is not None
 
-    kp = orb.extract_orb(img, cfg, device=dev)
-    depth_out = {}
-    if depth_map is not None:
-        # RGB-D: nearest-sample the depth image at the keypoints
-        # (`Frame::ComputeStereoFromRGBD`)
-        dm = torch.as_tensor(depth_map, device=dev).to(torch.float32)
-        H_, W_ = dm.shape
-        xi = torch.round(kp.xy[:, 0]).long().clamp(0, W_ - 1)
-        yi = torch.round(kp.xy[:, 1]).long().clamp(0, H_ - 1)
-        d = dm[yi, xi]
-        d = torch.where((d > 0) & kp.valid, d, -1.0)
-        ur = torch.where(d > 0, kp.xy[:, 0] - _over(bf, d.clamp(min=1e-9)),
-                         -1.0)
-        depth_out = dict(kp_depth=d, kp_ur=ur)
-    elif img_right is not None:
-        # stereo: extract the right image in the step and match the
-        # tracking keypoints against it (`Frame::ComputeStereoMatches`);
-        # an 8-bit image is uploaded as it is and widened on the device
-        img_right = torch.as_tensor(img_right, device=dev).to(torch.float32)
-        kr = orb.extract_orb(img_right, cfg, device=dev)
-        sidx, sdisp = stereo.stereo_match(kp, kr)
-        sidx, sdisp, s_ur = stereo.refine_stereo_subpixel(
-            img, img_right, kp, kr, sidx, sdisp)
-        d = torch.where(sdisp > 0, _over(bf, sdisp.clamp(min=1e-6)), -1.0)
-        depth_out = dict(kp_depth=d,
-                         kp_ur=torch.where(sdisp > 0, s_ur, -1.0))
+    with optional_stage(record, "step.extract"):
+        img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+        kp = orb.extract_orb(img, cfg, device=dev)
+        depth_out = {}
+        if depth_map is not None:
+            # RGB-D: nearest-sample the depth image at the keypoints
+            # (`Frame::ComputeStereoFromRGBD`)
+            dm = torch.as_tensor(depth_map, device=dev).to(torch.float32)
+            H_, W_ = dm.shape
+            xi = torch.round(kp.xy[:, 0]).long().clamp(0, W_ - 1)
+            yi = torch.round(kp.xy[:, 1]).long().clamp(0, H_ - 1)
+            d = dm[yi, xi]
+            d = torch.where((d > 0) & kp.valid, d, -1.0)
+            ur = torch.where(d > 0,
+                             kp.xy[:, 0] - _over(bf, d.clamp(min=1e-9)),
+                             -1.0)
+            depth_out = dict(kp_depth=d, kp_ur=ur)
+        elif img_right is not None:
+            # stereo: extract the right image in the step and match the
+            # tracking keypoints against it (`Frame::ComputeStereoMatches`);
+            # an 8-bit image is uploaded as it is and widened on the device
+            img_right = torch.as_tensor(img_right,
+                                        device=dev).to(torch.float32)
+            kr = orb.extract_orb(img_right, cfg, device=dev)
+            sidx, sdisp = stereo.stereo_match(kp, kr)
+            sidx, sdisp, s_ur = stereo.refine_stereo_subpixel(
+                img, img_right, kp, kr, sidx, sdisp)
+            d = torch.where(sdisp > 0, _over(bf, sdisp.clamp(min=1e-6)),
+                            -1.0)
+            depth_out = dict(kp_depth=d,
+                             kp_ur=torch.where(sdisp > 0, s_ur, -1.0))
+        if have_bird:
+            bird_img = torch.as_tensor(bird_img, dtype=torch.float32,
+                                       device=dev)
+            if bird_mask is not None:
+                bird_mask = torch.as_tensor(bird_mask, dtype=torch.float32,
+                                            device=dev)
+            bkp = orb.extract_orb(bird_img, bird_cfg, mask=bird_mask,
+                                  device=dev)
     P = lm.capacity
     K = kp.capacity
     n_levels = scale_factors.shape[0]
     log_scale = (torch.log(scale_factors[1]) if n_levels > 1
                  else torch.tensor(0.18, dtype=torch.float32, device=dev))
 
-    ham = matcher.hamming_matrix(unpack_bits_to_pm1(lm.desc_u8), kp.desc_pm1,
-                                 lm.valid, kp.valid)
-
     def gate(R, t):
         return device_ops.frustum_gate(
             R, t, lm.pos, lm.normal, lm.min_dist, lm.max_dist, lm.valid,
             fx, fy, cx, cy, width, height, n_levels, log_scale)
 
-    # ---- birdview stream setup -----------------------------------------
-    have_bird = bird_img is not None and bird_lm is not None
-    bird_args1 = bird_args2 = {}
-    if have_bird:
-        bird_img = torch.as_tensor(bird_img, dtype=torch.float32, device=dev)
-        if bird_mask is not None:
-            bird_mask = torch.as_tensor(bird_mask, dtype=torch.float32,
-                                        device=dev)
-        R_bc, t_bc = _device_tensors(dev, R_bc, t_bc)
-        bird_lm = BirdMapDevice(*_device_tensors(dev, *bird_lm))
-        bkp = orb.extract_orb(bird_img, bird_cfg, mask=bird_mask, device=dev)
-        base_xy = bv.pixel_to_base_xy(bkp.xy)
-        base_xyz = torch.cat([base_xy, torch.zeros_like(base_xy[:, :1])], -1)
-        R_cb = R_bc.T
-        t_cb = -R_cb @ t_bc
-        obs_pc = base_xyz @ R_cb.T + t_cb    # camera-frame observations
-        bham = matcher.hamming_matrix(unpack_bits_to_pm1(bird_lm.desc_u8),
-                                      bkp.desc_pm1, bird_lm.valid, bkp.valid)
-        Pb = bird_lm.capacity
-        rad_b = torch.full((Pb,), bird_radius, dtype=torch.float32, device=dev)
-        info_b = torch.full((Pb,), bird_info, dtype=torch.float32, device=dev)
-
-        def bird_match(R, t):
-            # world -> vehicle base of the current pose: Tbc · Tcw
-            Rbw = R_bc @ R
-            tbw = R_bc @ t + t_bc
-            pb = bird_lm.pos @ Rbw.T + tbw
-            on_plane = pb[:, 2].abs() < 0.2
-            buv = bv.base_xy_to_pixel(pb[:, :2])
-            bok = on_plane & bv.in_image(buv) & bird_lm.valid
-            return _match_stage(bham, buv, bok, rad_b, None,
-                                bkp.xy, bkp.octave, matcher.TH_HIGH)
-
-        def bird_lm_args(bidx):
-            return dict(Xw_bird=bird_lm.pos,
-                        obs_pc_bird=obs_pc[bidx.clamp(min=0).long()],
-                        info_bird=info_b, valid_bird=bidx >= 0)
-
-        bidx1 = bird_match(R_pred, t_pred)
-        bird_args1 = bird_lm_args(bidx1)
-
-    # ---- stage 1: motion-model match (narrow, widen when starved) ------
-    uv1, oct1, radf1, ok1 = gate(R_pred, t_pred)
-    sf1 = scale_factors[oct1.clamp(0, n_levels - 1).long()]
-    r_narrow = radf1 * radius_mult_motion * sf1
-    idx_n = _match_stage(ham, uv1, ok1, r_narrow, oct1, kp.xy, kp.octave,
-                         matcher.TH_HIGH)
-    n_narrow = (idx_n >= 0).sum(dtype=torch.int32)
-    idx_w = _match_stage(ham, uv1, ok1, r_narrow * 2.0, oct1, kp.xy,
-                         kp.octave, matcher.TH_HIGH)
-    idx1 = torch.where(n_narrow >= min_widen, idx_n, idx_w)
-
     def info_of(idx):
         octv = kp.octave[idx.clamp(min=0).long()]
         return inv_sigma2[octv.clamp(0, n_levels - 1).long()]
 
-    obs1 = kp.xy[idx1.clamp(min=0).long()]
-    res1 = pose_opt.optimize_pose(
-        R_pred, t_pred, lm.pos, obs1, info_of(idx1), idx1 >= 0,
-        fx, fy, cx, cy, rounds=2, **bird_args1)
+    bird_args1 = bird_args2 = {}
+    with optional_stage(record, "step.match"):
+        ham = matcher.hamming_matrix(unpack_bits_to_pm1(lm.desc_u8),
+                                     kp.desc_pm1, lm.valid, kp.valid)
+        # ---- birdview stream setup -------------------------------------
+        if have_bird:
+            R_bc, t_bc = _device_tensors(dev, R_bc, t_bc)
+            bird_lm = BirdMapDevice(*_device_tensors(dev, *bird_lm))
+            base_xy = bv.pixel_to_base_xy(bkp.xy)
+            base_xyz = torch.cat([base_xy, torch.zeros_like(base_xy[:, :1])],
+                                 -1)
+            R_cb = R_bc.T
+            t_cb = -R_cb @ t_bc
+            obs_pc = base_xyz @ R_cb.T + t_cb    # camera-frame observations
+            bham = matcher.hamming_matrix(
+                unpack_bits_to_pm1(bird_lm.desc_u8), bkp.desc_pm1,
+                bird_lm.valid, bkp.valid)
+            Pb = bird_lm.capacity
+            rad_b = torch.full((Pb,), bird_radius, dtype=torch.float32,
+                               device=dev)
+            info_b = torch.full((Pb,), bird_info, dtype=torch.float32,
+                                device=dev)
+
+            def bird_match(R, t):
+                # world -> vehicle base of the current pose: Tbc · Tcw
+                Rbw = R_bc @ R
+                tbw = R_bc @ t + t_bc
+                pb = bird_lm.pos @ Rbw.T + tbw
+                on_plane = pb[:, 2].abs() < 0.2
+                buv = bv.base_xy_to_pixel(pb[:, :2])
+                bok = on_plane & bv.in_image(buv) & bird_lm.valid
+                return _match_stage(bham, buv, bok, rad_b, None,
+                                    bkp.xy, bkp.octave, matcher.TH_HIGH)
+
+            def bird_lm_args(bidx):
+                return dict(Xw_bird=bird_lm.pos,
+                            obs_pc_bird=obs_pc[bidx.clamp(min=0).long()],
+                            info_bird=info_b, valid_bird=bidx >= 0)
+
+            bidx1 = bird_match(R_pred, t_pred)
+            bird_args1 = bird_lm_args(bidx1)
+
+        # ---- stage 1: motion-model match (narrow, widen when starved) --
+        uv1, oct1, radf1, ok1 = gate(R_pred, t_pred)
+        sf1 = scale_factors[oct1.clamp(0, n_levels - 1).long()]
+        r_narrow = radf1 * radius_mult_motion * sf1
+        idx_n = _match_stage(ham, uv1, ok1, r_narrow, oct1, kp.xy, kp.octave,
+                             matcher.TH_HIGH)
+        n_narrow = (idx_n >= 0).sum(dtype=torch.int32)
+        idx_w = _match_stage(ham, uv1, ok1, r_narrow * 2.0, oct1, kp.xy,
+                             kp.octave, matcher.TH_HIGH)
+        idx1 = torch.where(n_narrow >= min_widen, idx_n, idx_w)
+        obs1 = kp.xy[idx1.clamp(min=0).long()]
+        info1, valid1 = info_of(idx1), idx1 >= 0
+    with optional_stage(record, "step.pose_lm"):
+        res1 = pose_opt.optimize_pose(
+            R_pred, t_pred, lm.pos, obs1, info1, valid1,
+            fx, fy, cx, cy, rounds=2, **bird_args1)
 
     # ---- stage 2: local-map re-match under the refined pose -------------
-    uv2, oct2, radf2, ok2 = gate(res1.R, res1.t)
-    sf2 = scale_factors[oct2.clamp(0, n_levels - 1).long()]
-    r2 = radf2 * radius_mult_local * sf2
-    idx2 = _match_stage(ham, uv2, ok2, r2, oct2, kp.xy, kp.octave,
-                        matcher.TH_HIGH)
-    idx2 = _rematch_keep(idx2, idx1, res1.inliers_mono, ham)
-    obs2 = kp.xy[idx2.clamp(min=0).long()]
-    if have_bird:
-        bidx2 = _rematch_keep(bird_match(res1.R, res1.t), bidx1,
-                              res1.inliers_bird, bham)
-        bird_args2 = bird_lm_args(bidx2)
-    res2 = pose_opt.optimize_pose(
-        res1.R, res1.t, lm.pos, obs2, info_of(idx2), idx2 >= 0,
-        fx, fy, cx, cy, rounds=4, **bird_args2)
+    with optional_stage(record, "step.match"):
+        uv2, oct2, radf2, ok2 = gate(res1.R, res1.t)
+        sf2 = scale_factors[oct2.clamp(0, n_levels - 1).long()]
+        r2 = radf2 * radius_mult_local * sf2
+        idx2 = _match_stage(ham, uv2, ok2, r2, oct2, kp.xy, kp.octave,
+                            matcher.TH_HIGH)
+        idx2 = _rematch_keep(idx2, idx1, res1.inliers_mono, ham)
+        obs2 = kp.xy[idx2.clamp(min=0).long()]
+        if have_bird:
+            bidx2 = _rematch_keep(bird_match(res1.R, res1.t), bidx1,
+                                  res1.inliers_bird, bham)
+            bird_args2 = bird_lm_args(bidx2)
+        info2, valid2 = info_of(idx2), idx2 >= 0
+    with optional_stage(record, "step.pose_lm"):
+        res2 = pose_opt.optimize_pose(
+            res1.R, res1.t, lm.pos, obs2, info2, valid2,
+            fx, fy, cx, cy, rounds=4, **bird_args2)
 
     final_inl = res2.inliers_mono & (idx2 >= 0)
     visible = ok1 | ok2

@@ -27,6 +27,7 @@ index alone.
 from __future__ import annotations
 
 from collections import deque
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ from ..mapping.mapstore import MapStore
 from ..parallel import runtime
 from ..parallel import sharded_ba as sba
 from ..utils.async_fetch import BackgroundFetch
-from ..utils.profiling import GLOBAL_TIMER
+from ..utils.profiling import StageTimer
 from . import device_ops
 
 # Deterministic-schedule landing offsets (in tracked frames): a result
@@ -72,10 +73,13 @@ def pow2_bucket(n, lo, hi):
 
 class LocalMapper:
     def __init__(self, cfg: SlamConfig, store: MapStore, device=None,
-                 mesh: runtime.Mesh = None):
+                 mesh: runtime.Mesh = None,
+                 timer: Optional[StageTimer] = None):
         self.cfg = cfg
         self.store = store
         self.device = resolve_device(device)
+        # the System's span record (a mapper of its own without one)
+        self.timer = timer if timer is not None else StageTimer()
         # the shards of the full-map BA and the essential graph: the one
         # device unless the caller gives a mesh of more shards
         self.mesh = (mesh if mesh is not None
@@ -259,7 +263,7 @@ class LocalMapper:
         A stage's result is folded in ONLY by a `block=True` call at its
         landing tick (poll_background) or a drain. `budget` caps the number
         of stage TRANSITIONS. Returns True if the map changed."""
-        T = GLOBAL_TIMER
+        T = self.timer
         changed = False
         while self._kf_stage is not None or self._kf_queue:
             if budget is not None and budget <= 0:
@@ -438,7 +442,7 @@ class LocalMapper:
             on(store.kf_t[nbs]), on(nb_ok), cfg.camera.K.to(dev),
             xy1, oct1, on(free1), desc1, xy2, oct2, on(free2), desc2,
             on(self.level_sigma2))
-        return (good, free1), BackgroundFetch(out)
+        return (good, free1), BackgroundFetch(out, self.timer)
 
     def _apply_triangulate(self, kf: int, meta, fetched):
         """CreateNewMapPoints, apply half: allocate the accepted points from
@@ -549,7 +553,7 @@ class LocalMapper:
             torch.full((P,), 3.0, device=dev))
         meta = (list(neighbors) + [kf], ids_f, pval_f, ids_r, pval_r,
                 ids_fp, ids_rp)
-        return meta, BackgroundFetch(out)
+        return meta, BackgroundFetch(out, self.timer)
 
     def _apply_fuse(self, kf: int, meta, fetched):
         """SearchInNeighbors, apply half: merge duplicate landmarks (keep
@@ -830,12 +834,14 @@ class LocalMapper:
          mono_es, stereo_es, bird_es, mp_ids, bmp_ids, n_mp, n_bmp,
          n_mono) = \
             self._gather_ba_problem(window, frontier, pad_to=pad_to)
-        res = ba.bundle_adjust(
-            cam_R, cam_t, fixed, cam_valid, points, pvalid,
-            mono_es, stereo_es, bird_es,
-            cam.fx, cam.fy, cam.cx, cam.cy, bf=cam.bf,
-            iters_phase1=iters[0], iters_phase2=iters[1], device=self.device,
-        )
+        with self.timer.device_span("map.local_ba", self.device):
+            res = ba.bundle_adjust(
+                cam_R, cam_t, fixed, cam_valid, points, pvalid,
+                mono_es, stereo_es, bird_es,
+                cam.fx, cam.fy, cam.cx, cam.cy, bf=cam.bf,
+                iters_phase1=iters[0], iters_phase2=iters[1],
+                device=self.device,
+            )
         if self._ba_pending is not None:
             self.stats["ba_dropped"] += 1
         self.stats["ba_dispatched"] += 1
@@ -871,10 +877,12 @@ class LocalMapper:
             fetch = pend["fetch"] = BackgroundFetch(
                 (res.cam_R[:n_real], res.cam_t[:n_real],
                  res.points[:n_pts], res.inl_mono[:n_mono],
-                 mono_es.cam[:n_mono], mono_es.pt[:n_mono]))
+                 mono_es.cam[:n_mono], mono_es.pt[:n_mono]), self.timer)
         if not block or start_fetch_only:
             return False
         arrays = fetch.get()
+        # the BA's device span has finished: read it into the record
+        self.timer.poll()
         self._ba_pending = None
         store = self.store
         if store.correction_epoch != pend["epoch"]:
@@ -958,7 +966,7 @@ class LocalMapper:
         fixed_np = np.ones(C, bool)
         fixed_np[: len(window)] = False
         fixed_np[: len(all_kfs)][all_kfs == 0] = True
-        with GLOBAL_TIMER.stage("map.gba_dispatch"):
+        with self.timer.stage("map.gba_dispatch"):
             if self.mesh.n_shards > 1:
                 res = self._sharded_global_ba(
                     cam_R, cam_t, fixed_np, cam_valid, points, pvalid,
@@ -1036,10 +1044,11 @@ class LocalMapper:
             n_pts = pend["n_mp"] + pend["n_bmp"]
             nw = len(pend["window"])
             fetch = pend["fetch"] = BackgroundFetch(
-                (res.cam_R[:nw], res.cam_t[:nw], res.points[:n_pts]))
+                (res.cam_R[:nw], res.cam_t[:nw], res.points[:n_pts]),
+                self.timer)
         if not block or start_fetch_only:
             return False
-        with GLOBAL_TIMER.stage("map.gba_apply"):
+        with self.timer.stage("map.gba_apply"):
             arrays = fetch.get()
             self._gba_pending = None
             store = self.store

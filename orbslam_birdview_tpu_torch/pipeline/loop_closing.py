@@ -65,6 +65,7 @@ class LoopCloser:
         self.store = store
         self.mapper = mapper
         self.device = mapper.device
+        self.timer = mapper.timer   # the System's span record
         self.voc = vocabulary
         self.kfdb: Optional[KeyFrameDatabase] = None
         if vocabulary is not None:
@@ -173,11 +174,15 @@ class LoopCloser:
         self.kfdb.add_keyframe(kf, self._kp_of(kf))
         if kf - self.last_loop_kf < 10 or self.store.n_kf < 12:
             return False
-        for cand in self._detect_loop(kf):
-            res = self._compute_sim3(kf, int(cand))
+        with self.timer.stage("loop.detect"):
+            cands = self._detect_loop(kf)
+        for cand in cands:
+            with self.timer.stage("loop.sim3"):
+                res = self._compute_sim3(kf, int(cand))
             if res is not None:
                 S, loop_points = res
-                self._correct_loop(kf, int(cand), S, loop_points)
+                with self.timer.stage("loop.correct"):
+                    self._correct_loop(kf, int(cand), S, loop_points)
                 return True
         return False
 

@@ -71,10 +71,11 @@ class _SummaryBlock:
     `summary_batch` rows, or at once (one row) whenever tracking is not
     demonstrably healthy (see `_process_fused`)."""
 
-    def __init__(self, stats: Optional[list] = None):
+    def __init__(self, stats: Optional[list] = None, timer=None):
         self.rows: list = []          # per-frame (16,) device tensors
         self.fetch: Optional[BackgroundFetch] = None
         self._stats = stats           # realized-batch-size telemetry
+        self._timer = timer
 
     def append(self, summary) -> "_SummaryRef":
         ref = _SummaryRef(self, len(self.rows))
@@ -85,7 +86,8 @@ class _SummaryBlock:
         if self.fetch is None:
             if self._stats is not None:
                 self._stats.append(len(self.rows))
-            self.fetch = BackgroundFetch(torch.stack(self.rows))
+            self.fetch = BackgroundFetch(torch.stack(self.rows),
+                                         self._timer)
             self.rows = []
 
 
@@ -127,7 +129,7 @@ def _to_pm1(u8):
 
 class Tracker:
     def __init__(self, cfg: SlamConfig, store: MapStore, mapper=None,
-                 device=None):
+                 device=None, timer: Optional[StageTimer] = None):
         self.cfg = cfg
         self.store = store
         self.mapper = mapper
@@ -154,7 +156,8 @@ class Tracker:
         # mostly temporal VO points (few map inliers)
         self.vo_mode = False
         self.reset_requested = False
-        self.timer = StageTimer()
+        # the System's span record (a tracker of its own without one)
+        self.timer = timer if timer is not None else StageTimer()
         # what the last initialization attempt saw (matches, ICP inliers,
         # flags), for logs and checks
         self.init_stats: dict = {}
@@ -192,10 +195,8 @@ class Tracker:
         # lag-N pipeline state: in-flight fused frames (FIFO) and the
         # device pose chain. Frames retire at a fixed depth of the queue.
         self._pending_q: deque = deque()
-        # telemetry: realized summary-batch sizes and wall spent in forced
-        # retirement
+        # telemetry: realized summary-batch sizes
         self.batch_stats: list[int] = []
-        self.forced_block_s = 0.0
         self._sum_block: Optional[_SummaryBlock] = None
         self._chain = None
         # device-resident visible/found accumulators for the current
@@ -222,6 +223,7 @@ class Tracker:
         K = kp.capacity
         fd = FrameData(
             frame_id=self.frame_id,
+            call=self.timer.frame,
             timestamp=timestamp,
             kp=kp,
             R=np.eye(3, dtype=np.float32),
@@ -446,7 +448,7 @@ class Tracker:
         if self._acc is None or self._lm_ids is None or self._lm_n == 0:
             return
         self._acc_pending.append(
-            (BackgroundFetch(self._acc), self._lm_ids, self._lm_n,
+            (BackgroundFetch(self._acc, self.timer), self._lm_ids, self._lm_n,
              self.frame_id))
         self._acc = None
 
@@ -526,7 +528,8 @@ class Tracker:
                 right_img = np.asarray(right_img, np.float32)
             depth_kw = dict(img_right=right_img, bf=float(cam.bf))
         self.timer.count("track.fused")
-        with self.timer.stage("fused.dispatch"):
+        with self.timer.stage("fused.dispatch"), \
+                self.timer.device_span("step", dev) as step_span:
             out = fused_track.track_step_mono(
                 img, R_pred, t_pred,
                 self._lm_bundle, self._sf_dev, self._isig_dev, self.cfg.orb,
@@ -536,8 +539,9 @@ class Tracker:
                 radius_mult_local=cfgt.local_search_radius / 2.5,
                 R_last=R_last, t_last=t_last,
                 vis_acc=self._acc[0], found_acc=self._acc[1], device=dev,
-                **bird_kw, **depth_kw,
+                record=self.timer, **bird_kw, **depth_kw,
             )
+        self.timer.mark("dispatched", self.timer.frame)
         self._acc = (out.vis_acc, out.found_acc)
         # the frame's summary rides home in a BATCHED block fetch: exactly
         # `summary_batch` rows per block, sealed at once (one row) whenever
@@ -545,7 +549,8 @@ class Tracker:
         # keyframe policy never lag a struggling tracker
         if self._sum_block is None or self._sum_block.fetch is not None:
             # (fetch set = a forced retirement sealed the block early)
-            self._sum_block = _SummaryBlock(stats=self.batch_stats)
+            self._sum_block = _SummaryBlock(stats=self.batch_stats,
+                                            timer=self.timer)
         summary = self._sum_block.append(out.summary)
         healthy = (self.state == OK and not cfgt.synchronous
                    and cfgt.fused_lag1
@@ -554,10 +559,12 @@ class Tracker:
                 or len(self._sum_block.rows) >= cfgt.summary_batch):
             self._sum_block.seal()
             self._sum_block = None
-        fd = FrameData(frame_id=self.frame_id, timestamp=timestamp,
+        fd = FrameData(frame_id=self.frame_id, call=self.timer.frame,
+                       timestamp=timestamp,
                        kp=out.kp, R=np.eye(3, dtype=np.float32),
                        t=np.zeros(3, np.float32),
                        kp_mp=np.full(out.kp.capacity, INVALID, np.int64))
+        fd._step_span = step_span
         fd._kp_slot_dev = out.kp_slot
         fd._lm_ids_snapshot = (self._lm_ids, self._lm_n)
         if out.bird_kp is not None:
@@ -584,11 +591,9 @@ class Tracker:
         max_lag = (cfgt.fused_max_lag
                    if cfgt.fused_lag1 and not cfgt.synchronous else 0)
         if len(self._pending_q) > max_lag:
-            t_blk = time.perf_counter()
             with self.timer.stage("fused.retire"):
                 while len(self._pending_q) > max_lag:
                     disruption |= self._finalize_pending()
-            self.forced_block_s += time.perf_counter() - t_blk
         if disruption:
             # frames still in flight were dispatched against the old state;
             # their matches stay valid, but the NEXT prediction re-syncs
@@ -616,6 +621,7 @@ class Tracker:
         fd, out, summary, (lm_ids, lm_n, P, epoch) = \
             self._pending_q.popleft()
         fd._finalize_cb = None
+        self.timer.mark("retire", fd.call)
         cfgt = self.cfg.tracking
         store = self.store
         disruption = False
@@ -671,7 +677,7 @@ class Tracker:
                     # keyframe's triangulation starts this frame
                     if fd._kp_slot_dev is not None:
                         self._kf_apply_fetched(
-                            fd, fetch(self._kf_fetch_items(fd)))
+                            fd, fetch(self._kf_fetch_items(fd), self.timer))
                     # a mint only ADDS landmarks: the device pose chain
                     # stays valid unless mapping moved poses meanwhile
                     disruption |= self._mint_keyframe_tracked(fd)
@@ -680,7 +686,7 @@ class Tracker:
                     # home in the background; creation completes
                     # KF_MINT_LAG frames later
                     self._kf_pending = (fd, BackgroundFetch(
-                        self._kf_fetch_items(fd)), self.frame_id)
+                        self._kf_fetch_items(fd), self.timer), self.frame_id)
         else:
             if self.store.kf_valid.sum() <= 5:
                 self.reset_requested = True
@@ -1016,7 +1022,8 @@ class Tracker:
             **bird_args)
         flat = fetch(torch.cat([res.R.reshape(-1), res.t,
                                 res.inliers_mono.to(torch.float32),
-                                res.inliers_bird.to(torch.float32)]))
+                                res.inliers_bird.to(torch.float32)]),
+                     self.timer)
         K = len(m)
         fd.R = flat[:9].reshape(3, 3).copy()
         fd.t = flat[9:12].copy()
@@ -1063,7 +1070,7 @@ class Tracker:
             uv, ok, on(store.mp_desc[ids_p]),
             fd.kp.xy, fd.kp.octave, fd.kp.valid, fd.kp.desc_pm1,
             radius, pred_oct, max_dist_th=max_dist)
-        vis, idx = fetch((ok, idx))
+        vis, idx = fetch((ok, idx), self.timer)
         # visibility counter
         np.add.at(store.mp_visible, ids_p[vis & pvalid], 1)
         found = idx >= 0
@@ -1500,7 +1507,8 @@ class Tracker:
             # ONE batched transfer for the keypoint arrays and the deferred
             # association readbacks, once per keyframe
             with self.timer.stage("kf.fetch_kp"):
-                self._kf_apply_fetched(fd, fetch(self._kf_fetch_items(fd)))
+                self._kf_apply_fetched(
+                    fd, fetch(self._kf_fetch_items(fd), self.timer))
         elif fd.kp_host is None or (fd.bird_kp is not None
                                     and fd.bird_kp_host is None):
             with self.timer.stage("kf.fetch_kp"):
@@ -1606,7 +1614,8 @@ class Tracker:
         transfer, for the frames whose keyframe batch did not carry them
         (a fallback keyframe, the last frame in localization mode)."""
         if isinstance(fd.kp_depth, torch.Tensor):
-            fd.kp_depth, fd.kp_ur = fetch((fd.kp_depth, fd.kp_ur))
+            fd.kp_depth, fd.kp_ur = fetch((fd.kp_depth, fd.kp_ur),
+                                          self.timer)
 
     # ------------------------------------------------------------------
     def _update_velocity(self, fd: FrameData):
@@ -1618,8 +1627,11 @@ class Tracker:
 
     def _record_trajectory(self, fd: FrameData):
         # pose-available wall time: with lag-N retirement the entry point
-        # returns before the pose exists
+        # returns before the pose exists. The frame's device step has
+        # finished by now on the fused path (its summary landed).
         fd._finalized_wall = time.perf_counter()
+        self.timer.mark("pose", fd.call, fd._finalized_wall)
+        self.timer.poll()
         if self.ref_kf == INVALID:
             return
         store = self.store

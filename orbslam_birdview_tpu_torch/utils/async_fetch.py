@@ -6,7 +6,9 @@ the host when it is made, and returns numpy when asked. It is not a
 thread: on CUDA each tensor is copied into pinned host memory with
 `non_blocking=True` on the current stream, and a CUDA event is recorded
 behind the copies. `done()` asks the event; `get()` waits for it. On the
-CPU the tensors are copied at once.
+CPU the tensors are copied at once. Given a span record
+(`utils.profiling.StageTimer`), `get()` and `fetch` time themselves in
+its `wait` span: the host blocked on the device.
 
 `done()` may only be used to decide when to START further work; whether a
 result is folded in is decided by the caller's fixed landing schedule,
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .profiling import optional_stage
 
 
 def _start(x, cuda_seen: list):
@@ -43,7 +47,8 @@ def _numpy(x):
 class BackgroundFetch:
     """Fetch a nest of tensors to the host; `get()` returns it as numpy."""
 
-    def __init__(self, arrays):
+    def __init__(self, arrays, timer=None):
+        self._timer = timer
         cuda_seen: list = []
         self._host = _start(arrays, cuda_seen)
         self._event = None
@@ -55,15 +60,17 @@ class BackgroundFetch:
         return self._event is None or self._event.query()
 
     def get(self):
-        if self._event is not None:
-            self._event.synchronize()
-        return _numpy(self._host)
+        with optional_stage(self._timer, "wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return _numpy(self._host)
 
 
-def fetch(arrays):
+def fetch(arrays, timer=None):
     """Blocking fetch of a nest of tensors as numpy: one `BackgroundFetch`,
     waited for at once."""
-    return BackgroundFetch(arrays).get()
+    with optional_stage(timer, "wait"):
+        return BackgroundFetch(arrays).get()
 
 
 def to_numpy(x) -> np.ndarray:
