@@ -187,6 +187,7 @@ P, PB = 6144, 2048       # fused_point_cap, fused_bird_cap (api/config.py)
 BEV = 384                # BirdviewCamera default (core/camera.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 REPS = 20                # timing repetitions per kernel measurement
+PLAIN_LM_REPS = 3        # the plain pose LM: ~0.3 s a frame of launches
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of GPU clock: the queue fills behind it
 
 # Acceptance on the rendered drive, from the JAX package's own run of this
@@ -510,6 +511,79 @@ def launch_floor_ms(count, dev):
                             for _ in range(count)])
 
 
+def pose_lm_measure(st, frames, cam, mask, dev):
+    """The pose LM kernel on the two `optimize_pose` calls of one seeded
+    bird step, at the fused caps (P mono and PB bird edges: the 8-CTA
+    cluster that reduces through distributed shared memory): held against
+    `optimize_pose_plain` on the same tensors, and timed against it, the
+    bound from bytes and the launch floor."""
+    from orbslam_birdview_tpu_torch.graph import pose_opt
+
+    calls, solve = [], pose_opt.optimize_pose
+
+    def keep(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def record(*args, **kw):
+        calls.append(([keep(a) for a in args],
+                      {k: keep(v) for k, v in kw.items()}))
+        return solve(*args, **kw)
+
+    pose_opt.optimize_pose = record
+    try:
+        run_drive(st, frames[:2], cam, mask, True, dev)
+    finally:
+        pose_opt.optimize_pose = solve
+    edges = [[a[2].shape[0], kw["Xw_bird"].shape[0]] for a, kw in calls]
+    check(edges == [[P, PB]] * 2, f"pose LM calls of {edges} edges")
+    max_err = 0.0
+    for a, kw in calls:
+        got = solve(*a, **kw)
+        want = pose_opt.optimize_pose_plain(*a, **kw)
+        max_err = max(max_err, float((got.R - want.R).abs().max()),
+                      float((got.t - want.t).abs().max()))
+        check(torch.equal(got.inliers_mono, want.inliers_mono)
+              and torch.equal(got.inliers_bird, want.inliers_bird)
+              and int(got.n_inliers) == int(want.n_inliers),
+              f"pose LM kernel's inliers != plain at {kw['rounds']} rounds")
+    check(max_err <= 1e-4, f"pose LM kernel's R, t off plain by {max_err}")
+    # every input byte read once (R0, t0; a mono edge 25 B, a bird edge
+    # 29 B), every output byte written once (R, t, masks, count, cost)
+    n_bytes = sum(48 + 25 * n + 29 * nb + 48 + n + nb + 8 for n, nb in edges)
+    return dict(
+        name="pose_lm_f32", route="cuda",
+        source="orbslam_birdview_tpu_torch/csrc/pose_lm.cu",
+        replaces="no Pallas kernel; the LM of "
+                 "orbslam_birdview_tpu/graph/pose_opt.py is XLA code",
+        launches=None, max_abs_err=max_err,
+        ms=cuda_ms(lambda: [solve(*a, **kw) for a, kw in calls]),
+        plain_ms=cuda_ms(lambda: [pose_opt.optimize_pose_plain(*a, **kw)
+                                  for a, kw in calls], reps=PLAIN_LM_REPS),
+        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes; the true limit is the dependent chain of up to "
+                 "66 builds and solves",
+        library_ms=None,
+        host_bound_ms=cuda_ms(lambda: [solve(*a, **kw) for a, kw in calls],
+                              saturate=False),
+        launch_floor_ms=launch_floor_ms(len(calls), dev),
+        bytes=n_bytes, edges=edges,
+        note="per frame: the fused step's 2 calls (2 and 4 rounds); ms "
+             "the 2 launches with the device queue full; plain_ms the "
+             "plain version's ~24,700 launches, more than the launch "
+             "queue holds, so the host's issue time; host_bound_ms the 2 "
+             "launches as the step issues them; launch_floor_ms 2 "
+             "launches of an empty kernel")
+
+
+def check_lm_launches(launches, n_fused, dev, name):
+    """Two pose LM launches per fused step on the card (its two
+    `optimize_pose` calls); none on the CPU, where the plain version
+    runs."""
+    want = 2 * n_fused if dev.type == "cuda" else 0
+    check(launches == want, f"{name}: pose LM kernel launched {launches} "
+          f"times in {n_fused} fused steps on {dev.type}, expected {want}")
+
+
 # ---------------------------------------------------------------------------
 # slice
 # ---------------------------------------------------------------------------
@@ -619,6 +693,7 @@ def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000,
 
 def slice_phase(drive, dev):
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cam, bv, cfg, bcfg, seq, frames, mask, render_s = (
         drive[k] for k in ("cam", "bv", "cfg", "bcfg", "seq", "frames",
@@ -631,22 +706,28 @@ def slice_phase(drive, dev):
 
     kernel = kernel_phase(frames[1][0], frames[1][1], mask, cfg, bcfg, dev)
 
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rows = run_drive(st, frames, cam, mask, True, dev)
     bird_launches = patch_kernel.LAUNCHES
     n = len(rows)
     # one launch per extraction: front and BEV
     check(bird_launches == 2 * n,
           f"patch kernel launched {bird_launches} times in {n} bird frames")
+    check_lm_launches(pose_opt.LAUNCHES, n, dev, "seeded bird")
     kernel["launches_by_phase"] = dict(seeded_bird=bird_launches)
+    lm_by_phase = dict(seeded_bird=pose_opt.LAUNCHES)
 
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     mono_rows = run_drive(st, frames[:N_MONO + 1], cam, None, False, dev)
     mono_launches = patch_kernel.LAUNCHES
     check(mono_launches == len(mono_rows),
           f"patch kernel launched {mono_launches} times in "
           f"{len(mono_rows)} mono frames")
+    check_lm_launches(pose_opt.LAUNCHES, len(mono_rows), dev, "seeded mono")
     kernel["launches_by_phase"]["seeded_mono"] = mono_launches
+    lm_by_phase["seeded_mono"] = pose_opt.LAUNCHES
+    lm_kernel = pose_lm_measure(st, frames, cam, mask, dev)
+    lm_kernel["launches_by_phase"] = lm_by_phase
 
     bird_sum, mono_sum = summarize(rows), summarize(mono_rows)
     slice_rec = dict(
@@ -659,7 +740,7 @@ def slice_phase(drive, dev):
         floors=dict(front=MIN_FRONT_INLIERS, bird=MIN_BIRD_INLIERS,
                     mono=MIN_MONO_INLIERS, pos_m=MAX_POS_ERR_M,
                     rot_deg=MAX_ROT_ERR_DEG))
-    return kernel, slice_rec, dict(bird=rows, mono=mono_rows), st
+    return kernel, lm_kernel, slice_rec, dict(bird=rows, mono=mono_rows), st
 
 
 PROFILE_RANGES = ("front_extract", "bev_extract", "pose_lm")
@@ -1002,6 +1083,7 @@ def tracked_from_init_phase(tracker, drive, dev):
     keyframe's pose. Ground truth is expressed in the reference keyframe's
     camera frame (the map's world); nothing is aligned."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import state
 
     seq, frames, mask, cam = (drive[k] for k in ("seq", "frames", "mask",
@@ -1023,13 +1105,15 @@ def tracked_from_init_phase(tracker, drive, dev):
     first = int(store.kf_frame_id[1])
     rest = [(img, bev, relative_pose(pose, ref_pose))
             for img, bev, pose in frames[first:]]
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rows = run_drive(st, rest, cam, mask, True, dev,
                      start=(tracker.last_frame.R, tracker.last_frame.t))
     launches = patch_kernel.LAUNCHES
     check_launches(launches, len(rows), dev)
+    check_lm_launches(pose_opt.LAUNCHES, len(rows), dev, "from init")
     rec = summarize(rows)
     rec.update(first_frame=first + 1, patch_gather_launches=launches,
+               pose_lm_launches=pose_opt.LAUNCHES,
                bundle_points=tracker._lm_n, bundle_bird=tracker._bird_n)
     return rec, rows
 
@@ -1451,6 +1535,7 @@ def system_phase(drive, dev):
     width, then `_flush`. Ground truth is expressed in the first keyframe's
     camera frame (the map's world); nothing is aligned in scale."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import tracking
 
     seq, frames, mask = drive["seq"], drive["frames"], drive["mask"]
@@ -1462,7 +1547,7 @@ def system_phase(drive, dev):
     sync(dev)
     prewarm_s = time.perf_counter() - t0
     system.timer.reset()
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     fds, call_ms, mapping_call = [], [], []
     for i, (img, bev, _) in enumerate(frames):
         before = stage_counts(system)
@@ -1545,7 +1630,7 @@ def system_phase(drive, dev):
         vocab_load_ms=system.vocab_load_ms,
         loops_closed=system.loop_closer.n_loops_closed,
         kfdb_registered=len(system.loop_closer.kfdb.registered),
-        patch_gather_launches=launches,
+        patch_gather_launches=launches, pose_lm_launches=pose_opt.LAUNCHES,
         final_state_ok=bool(tracker.state == tracking.OK),
         floors=dict(init_frames=MAX_INIT_FRAMES,
                     tracked_share=MIN_SYSTEM_TRACKED_SHARE,
@@ -1649,10 +1734,11 @@ def loop_phase(dev, drive):
     and the GBA. Then one local BA and one GBA round on its map under the
     profiler."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cfg = slam_config(drive)
     system = make_system(cfg, dev)
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     linalg_launches(reset=True)
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
@@ -1663,6 +1749,7 @@ def loop_phase(dev, drive):
                          cfg.effective_bird_orb().n_features],
                render_s=drive["render_s"],
                patch_gather_launches=patch_kernel.LAUNCHES,
+               pose_lm_launches=pose_opt.LAUNCHES,
                floors=dict(loops=1, ate_m=MAX_LOOP_ATE_M))
     check_launches(rec["patch_gather_launches"], LOOP_FRAMES, dev)
     # the drive's initialization launches the SVD kernel, never eigh: the
@@ -1853,6 +1940,7 @@ def e2e_circular_loop_closure(dev):
     from orbslam_birdview_tpu_torch.core.camera import (BirdviewCamera,
                                                         PinholeCamera)
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
     from orbslam_birdview_tpu_torch.utils.synth import BirdSequence
 
@@ -1864,9 +1952,10 @@ def e2e_circular_loop_closure(dev):
     cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
     cfg.tbc_t = tuple(seq.t_bc.tolist())
     frames = render_frames(seq.frame, LOOP_FRAMES)
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rec = run_circle(make_system(cfg, dev), frames, None, seq, 1 / 25.0)
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    rec["pose_lm_launches"] = pose_opt.LAUNCHES
     check(rec["loops_closed"] >= 1, "e2e circle: no loop closed")
     check(rec["ate_m"] < 0.05, f"e2e circle: post-loop ATE {rec['ate_m']}")
     return rec
@@ -2028,8 +2117,9 @@ def e2e_phase(dev):
     stereo and RGB-D tests, with loop closing on as the reference's tests
     run them; the patch-gather launches of each group."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rec = dict(
         monocular_wall_sequence=e2e_monocular_wall_sequence(dev),
         birdview_metric_scale=e2e_birdview_metric_scale(dev),
@@ -2037,13 +2127,15 @@ def e2e_phase(dev):
         trajectory_savers=e2e_trajectory_savers(
             dev, ROOT / "chiprun_out" / "trajectories"))
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
-    patch_kernel.LAUNCHES = 0
+    rec["pose_lm_launches"] = pose_opt.LAUNCHES
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rec.update(
         rgbd_wall_sequence=e2e_rgbd_wall_sequence(dev),
         stereo_wall_sequence=e2e_stereo_wall_sequence(dev),
         localization_mode_vo_fallback=e2e_localization_mode_vo_fallback(dev),
         relocalization_after_lost=e2e_relocalization_after_lost(dev))
     rec["depth_patch_gather_launches"] = patch_kernel.LAUNCHES
+    rec["depth_pose_lm_launches"] = pose_opt.LAUNCHES
     return rec
 
 
@@ -2105,6 +2197,7 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     split by `reloc_split`. The solver kernels' counts are those of the
     recovering call alone."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import tracking
     from orbslam_birdview_tpu_torch.solvers import pnp
 
@@ -2112,7 +2205,7 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
     cfg.tracking.max_frames_between_kf = 2
     system = make_system(cfg, dev)
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     first_pass = {}
     for i, (img, bev, _) in enumerate(frames[:n_first]):
         fd = system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
@@ -2184,6 +2277,7 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
                 kfdb_candidates=counters.get("reloc.kfdb_candidates", 0),
                 fallback_used=counters.get("reloc.fallback", 0),
                 patch_gather_launches=patch_kernel.LAUNCHES,
+                pose_lm_launches=pose_opt.LAUNCHES,
                 small_linalg_launches=solver_launches,
                 relocalize_calls_ms=relocalize_ms,
                 **reloc_split(pnp_calls, dev))
@@ -2243,7 +2337,12 @@ def render_depth_drive(name, cfg, n_frames, wall):
 
 def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
     """The gather's launches against the path rule: per_fused a fused
-    frame, per_slow a slow-path one; 0 on a CPU (the plain version)."""
+    frame, per_slow a slow-path one; 0 on a CPU (the plain version). The
+    pose LM's, counted since the same reset: 2 a fused frame and as many
+    as its tracking calls a slow-path one, at least one on a path that
+    ran the card's LM at all."""
+    from orbslam_birdview_tpu_torch.graph import pose_opt
+
     counters = dict(system.tracker.timer.counters)
     fused, slow = counters.get("track.fused", 0), counters.get("track.slow",
                                                                0)
@@ -2252,7 +2351,12 @@ def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
     want = per_fused * fused + per_slow * slow if dev.type == "cuda" else 0
     check(launches == want, f"{name}: patch kernel launched {launches} "
           f"times, expected {want} ({fused} fused, {slow} slow frames)")
-    return dict(patch_gather_launches=launches, fused_frames=fused,
+    lm = pose_opt.LAUNCHES
+    ok = (lm >= 2 * fused and lm > 0) if dev.type == "cuda" else lm == 0
+    check(ok, f"{name}: pose LM kernel launched {lm} times in {fused} "
+          f"fused and {slow} slow frames on {dev.type}")
+    return dict(patch_gather_launches=launches, pose_lm_launches=lm,
+                fused_frames=fused,
                 slow_path_frames=slow,
                 launches_per_frame=dict(fused=per_fused, slow=per_slow))
 
@@ -2263,6 +2367,7 @@ def depth_drive(name, dev):
     patch-gather count. Ground truth in the first keyframe's camera frame
     (the map's world)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cfg = depth_config(name)
     n_frames, wall = ((STEREO_FRAMES, STEREO_WALL) if name == "stereo"
@@ -2271,7 +2376,7 @@ def depth_drive(name, dev):
     system = make_system(cfg, dev)
     system.prewarm()
     system.timer.reset()
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     fds, call_ms = [], []
     dt = 1.0 / cfg.fps
     for i, (img, second, _) in enumerate(frames):
@@ -2365,6 +2470,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     `read_poses=False` leaves each frame's pose unread until the drive
     ends (tools/rgbd_circle_variants.py)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     if cfg is None:
         cfg = depth_config("rgbd")
@@ -2376,7 +2482,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     system.prewarm()
     obs = watch_loop(system, seq)
     system.timer.reset()
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     linalg_launches(reset=True)
     fds, call_ms = [], []
     dt = 1.0 / cfg.fps
@@ -3112,6 +3218,7 @@ def cli_kitti(tmp, dev, scale, n_frames):
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "kitti00-02_stereo.yaml",
@@ -3130,7 +3237,7 @@ def cli_kitti(tmp, dev, scale, n_frames):
     (root / "times.txt").write_text(
         "".join(f"{i / cfg.fps:e}\n" for i in range(n_frames)))
     out, out_kf = tmp / "kitti_traj.txt", tmp / "kitti_kf.txt"
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "kitti_stereo", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
@@ -3174,6 +3281,7 @@ def cli_tum(tmp, dev, scale, n_frames):
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "tum1_rgbd.yaml",
@@ -3198,7 +3306,7 @@ def cli_tum(tmp, dev, scale, n_frames):
     (root / "rgb.txt").write_text("\n".join(rgb) + "\n")
     (root / "depth.txt").write_text("\n".join(depth) + "\n")
     out, viz_dir = tmp / "tum_traj.txt", tmp / "tum_viz"
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "tum_rgbd", "--root", str(root), "--config", cfg_path,
         "--out", str(out), "--viz-every", "10", "--viz-dir", str(viz_dir),
@@ -3243,6 +3351,7 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
     to the render bit for bit, then `run_slam --dataset fisheye_bird`."""
     from orbslam_birdview_tpu_torch.cli import datasets, run_slam
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     root = tmp / "fisheye"
@@ -3292,7 +3401,7 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
                   and np.array_equal(got, exp),
                   f"cli fisheye: frame {i}'s {name} differs from the render")
     out, out_kf = tmp / "fisheye_traj.txt", tmp / "fisheye_kf.txt"
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "fisheye_bird", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
@@ -3316,7 +3425,8 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
                 note="tracking not held: the CLI applies the reference's "
                      "hard-coded camera-to-base extrinsics, which the "
                      "synthetic drive's forward camera does not match",
-                patch_gather_launches=launches, launches_per_frame=2)
+                patch_gather_launches=launches, launches_per_frame=2,
+                pose_lm_launches=pose_opt.LAUNCHES)
 
 
 def cli_synthetic(dev, n_frames):
@@ -3324,8 +3434,9 @@ def cli_synthetic(dev, n_frames):
     own extrinsics): the printed metric ATE under MAX_CLI_ATE_M."""
     from orbslam_birdview_tpu_torch.cli import run_synthetic
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     res, tail, secs = run_cli(run_synthetic.main, [
         "--mode", "bird", "--frames", str(n_frames), "--device", dev.type])
     launches = patch_kernel.LAUNCHES
@@ -3337,7 +3448,8 @@ def cli_synthetic(dev, n_frames):
     check(res["ate_m"] < MAX_CLI_ATE_M,
           f"cli run_synthetic: METRIC ATE {res['ate_m']} m")
     return dict(res, run_s=secs, printed=tail,
-                patch_gather_launches=launches, launches_per_frame=2)
+                patch_gather_launches=launches, launches_per_frame=2,
+                pose_lm_launches=pose_opt.LAUNCHES)
 
 
 def cli_viewer(system, img):
@@ -3604,13 +3716,15 @@ def parallel_circle(dev, mesh, drive, one_device):
     and the full-map BA take the sharded branches."""
     from orbslam_birdview_tpu_torch.api.system import System
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cfg = slam_config(drive)
     system = System(cfg, device=dev, mesh=mesh)
-    patch_kernel.LAUNCHES = 0
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
+    rec["pose_lm_launches"] = pose_opt.LAUNCHES
     rec["shards"] = mesh.n_shards
     check_launches(rec["patch_gather_launches"], len(drive["frames"]), dev)
     check(rec["loops_closed"] >= 1, f"parallel circle: no loop closed")
@@ -3792,6 +3906,7 @@ def main() -> int:
         return 1
     from orbslam_birdview_tpu_torch.core import linalg
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import build
 
     dev = torch.device("cuda")
@@ -3799,19 +3914,23 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    # csrc/patch_gather.cu and csrc/small_linalg.cu, one nvcc each, together
-    build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY])
-    patch_kernel._kernel(), linalg._kernels()
+    # csrc/patch_gather.cu, small_linalg.cu and pose_lm.cu, one nvcc each,
+    # together
+    build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY,
+                           pose_opt.LIBRARY])
+    patch_kernel._kernel(), linalg._kernels(), pose_opt._kernel()
     build_s = time.perf_counter() - t0
     drive = render_drive(SYSTEM_FRAMES)
     seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     init_drive = dict(drive, frames=drive["frames"][:N_INIT_DRIVE])
-    kernel, slice_rec, rows, seeded = slice_phase(seeded_drive, dev)
+    kernel, lm_kernel, slice_rec, rows, seeded = slice_phase(seeded_drive,
+                                                             dev)
     slice_rec.update(build_s=build_s, card=card)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record = out_dir / "chip_smoke.json"
-    full = dict(card=card, kernels=[kernel], slice=slice_rec, frames=rows)
+    full = dict(card=card, kernels=[kernel, lm_kernel], slice=slice_rec,
+                frames=rows)
 
     def write_record():
         # written before each set of acceptance checks, so a failing run
@@ -3851,6 +3970,8 @@ def main() -> int:
     by_phase = kernel["launches_by_phase"]
     by_phase.update(init=init_rec["patch_gather_launches"],
                     from_init=tracked_rec["patch_gather_launches"])
+    lm_by_phase = lm_kernel["launches_by_phase"]
+    lm_by_phase["from_init"] = tracked_rec["pose_lm_launches"]
 
     # the SLAM loop through System: the drive, the e2e tests, lost and found
     system_rec = dict(card=card)
@@ -3926,6 +4047,26 @@ def main() -> int:
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
+    lm_by_phase.update(
+        system=system_rec["drive"]["pose_lm_launches"],
+        loop=loop_rec["circle"]["pose_lm_launches"],
+        e2e_bird=system_rec["e2e"]["pose_lm_launches"],
+        e2e_loop=loop_rec["e2e_circle"]["pose_lm_launches"],
+        relocalization=system_rec["relocalization"]["pose_lm_launches"],
+        depth_stereo=depth_rec["stereo"]["pose_lm_launches"],
+        depth_rgbd=depth_rec["rgbd"]["pose_lm_launches"],
+        depth_rgbd_circle=depth_rec["rgbd_circle"]["pose_lm_launches"],
+        e2e_depth=system_rec["e2e"]["depth_pose_lm_launches"],
+        **{f"cli_{k}": cli_rec[k]["pose_lm_launches"]
+           for k in ("kitti_stereo", "tum_rgbd", "fisheye_bird",
+                     "run_synthetic")},
+        parallel_circle=parallel_rec["circle"]["pose_lm_launches"])
+    # the fisheye CLI's run never initializes (its record's note), so it
+    # poses no frame: every other path tracks and launches the LM
+    check(all(n > 0 for k, n in lm_by_phase.items()
+              if k != "cli_fisheye_bird"),
+          f"a path never launched the pose LM kernel: {lm_by_phase}")
+    lm_kernel["launches"] = sum(lm_by_phase.values())
 
     # the profiled frame comes after every timed drive: once a profiler
     # session has run, each launch of the process costs more host time
@@ -3956,6 +4097,7 @@ def main() -> int:
             "host_bound_ms", "launch_floor_ms", "launches_by_phase")
     kernels_line = {"kernels": [
         {k: kernel[k] for k in (*keys, "kitti_stereo")},
+        {k: lm_kernel[k] for k in keys},
         *({k: line[k] for k in keys} for line in solver_kernels)]}
     full["kernels_line"] = kernels_line["kernels"]
     write_record()

@@ -5,15 +5,19 @@ iterations, Huber kernels in the first two rounds, and between rounds every
 edge re-classified inlier/outlier by chi² (5.991 mono / 7.815 bird).
 
 The reference leaves a round's LM loop early once it has converged (a
-`while_loop` on data). Eager PyTorch would need a host sync per iteration
-to do that, so here every round runs its full iteration budget and a
+`while_loop` on data). On CUDA tensors `optimize_pose` launches one
+hand-written kernel a call (`csrc/pose_lm.cu`): every round and iteration
+runs on the card, a round's loop ends at that exit, and nothing returns to
+the host in between; it raises on what the kernel does not take. On CPU
+tensors it runs `optimize_pose_plain`, which cannot leave a loop early
+without a host sync: every round runs its full iteration budget and a
 `done` flag freezes R, t, H, g, cost and λ from the iteration at which the
-reference would have stopped: the results are those of the early-exit
-loop, with no sync. The price is launches: ~60 iterations of a few hundred
-small kernels per tracked frame, launch-bound on a GPU.
+reference would have stopped, so its results are those of the early-exit
+loop. Both do the same arithmetic; the kernel sums in another order.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -23,6 +27,9 @@ from . import residuals
 
 CHI2_MONO = 5.991
 CHI2_BIRD = 7.815
+
+# launches of the CUDA kernel, counted where it is launched
+LAUNCHES = 0
 
 
 class PoseOptResult(NamedTuple):
@@ -105,14 +112,12 @@ def _chi2_only(R, t, Xw, obs, info, fx, fy, cx, cy, Xw_b, obs_b, info_b):
     return chi2, torch.sum(eb * eb, dim=-1) * info_b
 
 
-def optimize_pose(R0, t0, Xw, obs_uv, info, valid, fx: float, fy: float,
-                  cx: float, cy: float, Xw_bird=None, obs_pc_bird=None,
-                  info_bird=None, valid_bird=None, rounds: int = 4,
-                  iters_per_round: int = 10) -> PoseOptResult:
-    """Xw (N,3) world points matched to observations obs_uv (N,2);
-    info (N,) = 1/sigma² per edge; valid (N,) mask.
-    Bird edges: world landmark Xw_bird vs observed camera-frame point
-    obs_pc_bird with information info_bird."""
+def optimize_pose_plain(R0, t0, Xw, obs_uv, info, valid, fx: float,
+                        fy: float, cx: float, cy: float, Xw_bird=None,
+                        obs_pc_bird=None, info_bird=None, valid_bird=None,
+                        rounds: int = 4,
+                        iters_per_round: int = 10) -> PoseOptResult:
+    """`optimize_pose` in PyTorch operations, with no host sync."""
     dtype, dev = R0.dtype, R0.device
     if Xw_bird is None:
         Xw_bird = torch.zeros((1, 3), dtype=dtype, device=dev)
@@ -167,3 +172,123 @@ def optimize_pose(R0, t0, Xw, obs_uv, info, valid, fx: float, fy: float,
 
     n_inl = active.sum(dtype=torch.int32) + active_b.sum(dtype=torch.int32)
     return PoseOptResult(R, t, active, active_b, n_inl, final_cost)
+
+
+class _Args(ctypes.Structure):
+    """`PoseLMArgs` of csrc/pose_lm.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "R0", "t0", "Xw", "obs", "info", "valid", "Xw_b", "obs_b", "info_b",
+        "valid_b", "R", "t", "inl", "inl_b", "n_inliers", "chi2")] + \
+        [(name, ctypes.c_float) for name in ("fx", "fy", "cx", "cy")] + \
+        [(name, ctypes.c_int) for name in ("n", "nb", "rounds", "iters")]
+
+
+# the library's name, sources and headers in csrc/, for utils/build.py
+LIBRARY = ("pose_lm", ["pose_lm.cu"], [])
+_fn = None
+
+
+def _kernel():
+    """The C entry point of csrc/pose_lm.cu, built at first use."""
+    global _fn
+    if _fn is None:
+        from ..utils import build
+
+        lib = build.load_library(*LIBRARY)
+        fn = lib.pose_lm_f32
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+# the most edges (mono + bird) a call takes: 8 CTAs of 7,680 edges in
+# shared memory (kMaxCtas × kMaxPerCta of csrc/pose_lm.cu)
+MAX_EDGES = 8 * 7680
+
+
+def _check(dev, specs):
+    """Raise on what the kernel does not take: metadata only, no sync.
+    `specs`: (name, tensor, dtype, shape) each."""
+    for name, x, dtype, shape in specs:
+        if x.device != dev:
+            raise ValueError(f"optimize_pose: {name} on {x.device}, R0 on "
+                             f"{dev}")
+        if x.dtype != dtype:
+            raise ValueError(f"optimize_pose: {name} must be {dtype}, got "
+                             f"{x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"optimize_pose: {name} of shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"optimize_pose: {name} must be contiguous")
+
+
+def optimize_pose(R0, t0, Xw, obs_uv, info, valid, fx: float, fy: float,
+                  cx: float, cy: float, Xw_bird=None, obs_pc_bird=None,
+                  info_bird=None, valid_bird=None, rounds: int = 4,
+                  iters_per_round: int = 10) -> PoseOptResult:
+    """Xw (N,3) world points matched to observations obs_uv (N,2);
+    info (N,) = 1/sigma² per edge; valid (N,) mask.
+    Bird edges: world landmark Xw_bird vs observed camera-frame point
+    obs_pc_bird with information info_bird.
+
+    CPU tensors run `optimize_pose_plain`. CUDA tensors launch the kernel
+    once: float32 contiguous inputs on R0's device, valid masks of bool,
+    at most MAX_EDGES edges; anything else raises."""
+    global LAUNCHES
+    dev = R0.device
+    if dev.type == "cpu":
+        return optimize_pose_plain(R0, t0, Xw, obs_uv, info, valid, fx, fy,
+                                   cx, cy, Xw_bird, obs_pc_bird, info_bird,
+                                   valid_bird, rounds, iters_per_round)
+    if dev.type != "cuda":
+        raise ValueError(f"optimize_pose: unsupported device {dev}")
+    bird = (Xw_bird, obs_pc_bird, info_bird, valid_bird)
+    if any(x is None for x in bird) and any(x is not None for x in bird):
+        raise ValueError("optimize_pose: give all four bird tensors or none")
+    f32, b8 = torch.float32, torch.bool
+    n = Xw.shape[0] if Xw.dim() else -1
+    specs = [("R0", R0, f32, (3, 3)), ("t0", t0, f32, (3,)),
+             ("Xw", Xw, f32, (n, 3)), ("obs_uv", obs_uv, f32, (n, 2)),
+             ("info", info, f32, (n,)), ("valid", valid, b8, (n,))]
+    nb = 0
+    if Xw_bird is not None:
+        nb = Xw_bird.shape[0] if Xw_bird.dim() else -1
+        specs += [("Xw_bird", Xw_bird, f32, (nb, 3)),
+                  ("obs_pc_bird", obs_pc_bird, f32, (nb, 3)),
+                  ("info_bird", info_bird, f32, (nb,)),
+                  ("valid_bird", valid_bird, b8, (nb,))]
+    _check(dev, specs)
+    if n + nb > MAX_EDGES:
+        raise ValueError(f"optimize_pose: {n} + {nb} edges, the kernel takes "
+                         f"at most {MAX_EDGES}")
+    if rounds < 0 or iters_per_round < 0:
+        raise ValueError("optimize_pose: rounds and iterations must be >= 0")
+    R = torch.empty((3, 3), dtype=f32, device=dev)
+    t = torch.empty((3,), dtype=f32, device=dev)
+    inl = torch.empty((n,), dtype=b8, device=dev)
+    # without bird edges the plain version's one dummy edge, never an inlier
+    inl_b = torch.empty((1 if Xw_bird is None else nb,), dtype=b8,
+                        device=dev)
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    chi2 = torch.empty((), dtype=f32, device=dev)
+
+    def ptr(x):
+        return x.data_ptr() if x is not None and x.numel() else None
+
+    args = _Args(*map(ptr, (R0, t0, Xw, obs_uv, info, valid, *bird, R, t,
+                            inl, inl_b, n_inl, chi2)),
+                 fx, fy, cx, cy, n, nb, rounds, iters_per_round)
+    fn = _kernel()
+    # an op-scoped profiler range around the launch: the profiler links a
+    # launch made outside every torch op only to such a range, not to a
+    # user range such as record_function
+    with torch.cuda.device(dev), \
+            torch._C._profiler._RecordFunctionFast("pose_lm_f32"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"pose_lm kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return PoseOptResult(R, t, inl, inl_b, n_inl, chi2)

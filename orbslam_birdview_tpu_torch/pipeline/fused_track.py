@@ -264,7 +264,7 @@ def track_step_mono(
                                     bkp.xy, bkp.octave, matcher.TH_HIGH)
 
             def bird_lm_args(bidx):
-                return dict(Xw_bird=bird_lm.pos,
+                return dict(Xw_bird=bird_lm.pos.contiguous(),
                             obs_pc_bird=obs_pc[bidx.clamp(min=0).long()],
                             info_bird=info_b, valid_bird=bidx >= 0)
 
@@ -285,7 +285,8 @@ def track_step_mono(
         info1, valid1 = info_of(idx1), idx1 >= 0
     with optional_stage(record, "step.pose_lm"):
         res1 = pose_opt.optimize_pose(
-            R_pred, t_pred, lm.pos, obs1, info1, valid1,
+            R_pred.contiguous(), t_pred.contiguous(), lm.pos.contiguous(),
+            obs1, info1, valid1,
             fx, fy, cx, cy, rounds=2, **bird_args1)
 
     # ---- stage 2: local-map re-match under the refined pose -------------
@@ -304,7 +305,7 @@ def track_step_mono(
         info2, valid2 = info_of(idx2), idx2 >= 0
     with optional_stage(record, "step.pose_lm"):
         res2 = pose_opt.optimize_pose(
-            res1.R, res1.t, lm.pos, obs2, info2, valid2,
+            res1.R, res1.t, lm.pos.contiguous(), obs2, info2, valid2,
             fx, fy, cx, cy, rounds=4, **bird_args2)
 
     final_inl = res2.inliers_mono & (idx2 >= 0)

@@ -1017,7 +1017,8 @@ class Tracker:
                              obs_pc_bird=on(obs_pc.astype(np.float32)),
                              info_bird=on(binfo), valid_bird=on(bm))
         res = pose_opt.optimize_pose(
-            on(np.asarray(R0, np.float32)), on(np.asarray(t0, np.float32)),
+            on(np.ascontiguousarray(R0, np.float32)),
+            on(np.ascontiguousarray(t0, np.float32)),
             on(Xw), fd.kp.xy, info, on(m), cam.fx, cam.fy, cam.cx, cam.cy,
             **bird_args)
         flat = fetch(torch.cat([res.R.reshape(-1), res.t,

@@ -12,6 +12,7 @@ import torch
 
 from orbslam_birdview_tpu_torch.core import linalg
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
+from orbslam_birdview_tpu_torch.graph import pose_opt as tpo
 
 import small_linalg_cases as sl
 
@@ -277,3 +278,184 @@ def test_det_small_closed_form_on_the_card(cuda):
         want = torch.linalg.det(torch.from_numpy(X))
         assert torch.equal(torch.sign(got.cpu()), torch.sign(want)), name
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+# ---- the pose LM kernel (csrc/pose_lm.cu) ----------------------------------
+FX, FY, CX, CY = 350.0, 348.0, 320.0, 240.0
+
+
+def _rodrigues(w):
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    return np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th ** 2 * K @ K
+
+
+# the start: rotation vector and translation from the truth (2°, 15 cm)
+FAR = (0.02, 0.025, -0.01, 0.1, -0.08, 0.07)
+
+
+def _near(d):
+    return (d, -d, d) * 2
+
+
+def _pose_problem(seed, n, nb, start=FAR):
+    """n mono and nb bird edges seen from a known pose, 20 % gross outliers
+    displaced well past the chi² gates (30-200 px, 0.5-1 m), 5 % invalid;
+    the LM starts `start` (rotation vector, translation) away from the
+    truth. nb None: no bird tensors."""
+    rng = np.random.default_rng(seed)
+    R, t = _rodrigues([0.05, -0.1, 0.02]), np.array([0.3, -0.1, 0.5])
+    Xw = np.concatenate([rng.uniform(-4, 4, (n, 2)),
+                         rng.uniform(4, 12, (n, 1))], -1)
+    Xc = Xw @ R.T + t
+    uv = np.stack([FX * Xc[:, 0] / Xc[:, 2] + CX,
+                   FY * Xc[:, 1] / Xc[:, 2] + CY], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    bad = rng.random(n) < 0.2
+    ang = rng.uniform(0, 2 * np.pi, bad.sum())
+    uv[bad] += rng.uniform(30, 200, (bad.sum(), 1)) * np.stack(
+        [np.cos(ang), np.sin(ang)], -1)
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    args = [f32(_rodrigues(start[:3]) @ R), f32(t + np.asarray(start[3:])),
+            f32(Xw), f32(uv), f32(1.0 / 1.2 ** (2 * rng.integers(0, 3, n))),
+            torch.from_numpy(rng.random(n) > 0.05)]
+    bird = {}
+    if nb is not None:
+        Xb = np.concatenate([rng.uniform(-6, 6, (nb, 2)), np.zeros((nb, 1))],
+                            -1)
+        ob = Xb @ R.T + t + rng.normal(0, 0.01, (nb, 3))
+        badb = rng.random(nb) < 0.2
+        d = rng.normal(size=(badb.sum(), 3))
+        ob[badb] += d / np.linalg.norm(d, axis=1, keepdims=True) * \
+            rng.uniform(0.5, 1.0, (badb.sum(), 1))
+        bird = dict(Xw_bird=f32(Xb), obs_pc_bird=f32(ob),
+                    info_bird=f32(np.full(nb, 400.0)),
+                    valid_bird=torch.from_numpy(rng.random(nb) > 0.05))
+    return args, bird
+
+
+def _on(cuda, args, bird):
+    return ([a.to(cuda) for a in args],
+            {k: v.to(cuda) for k, v in bird.items()})
+
+
+# (id, n, nb, rounds, variant): the fused step's caps and both of its
+# calls' round counts; ragged sizes around a warp and inside one CTA;
+# 16,000 and MAX_EDGES edges (slices past the 48 KB of static shared
+# memory); every edge invalid; a start 0.3 mrad / 0.3 mm from the truth,
+# where round 1 leaves its loop after three iterations; a NaN world point
+# on a valid edge (its NaN weight reaches H through (P·w) Pᵀ, so no step is
+# ever accepted, on both sides)
+POSE_LM_CASES = [
+    ("caps_mono_r2", 6144, None, 2, None), ("caps_mono_r4", 6144, None, 4, None),
+    ("caps_bird_r2", 6144, 2048, 2, None), ("caps_bird_r4", 6144, 2048, 4, None),
+    *[(f"n{n}_nb{nb}", n, nb, 4, None)
+      for n in (1, 31, 33, 1000) for nb in (None, 1)],
+    ("n12000_nb4000", 12000, 4000, 4, None),
+    ("max_edges", tpo.MAX_EDGES - 4000, 4000, 4, None),
+    ("all_invalid", 500, 100, 4, "invalid"),
+    ("early_exit", 500, 100, 4, "near"),
+    ("nan_point", 500, 100, 4, "nan"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,nb,rounds,variant", POSE_LM_CASES,
+                         ids=[c[0] for c in POSE_LM_CASES])
+def test_pose_lm_matches_plain(cuda, name, n, nb, rounds, variant):
+    """The kernel (one launch, no sync) against `optimize_pose_plain` on the
+    card. R and t agree to 1e-4 (f32 sums in another order, amplified a
+    little per accepted step), the masks and counts exactly (residuals sit
+    clear of the gates), chi² to 1e-3 relative, 1e-6 absolute: one edge
+    is fitted exactly and its cost is rounding. One edge leaves the pose
+    free along four or one directions, where the two LMs drift apart by
+    rounding in proportion to the path they take (1.5e-4 m from 15 cm
+    away, 2e-5 from 1 mm in a CPU emulation of the kernel's arithmetic), so
+    those problems start 1 mrad / 1 mm from the truth."""
+    start = (_near(3e-4) if variant == "near" else _near(1e-3) if n == 1
+             else FAR)
+    args, bird = _pose_problem(n + (nb or 0), n, nb, start)
+    if variant == "invalid":
+        args[5][:] = False
+        bird["valid_bird"][:] = False
+    if variant == "nan":
+        args[2][3] = float("nan")
+        args[5][3] = True
+    args, bird = _on(cuda, args, bird)
+    before = tpo.LAUNCHES
+    got = _sync_free(lambda: tpo.optimize_pose(*args, FX, FY, CX, CY,
+                                               rounds=rounds, **bird))
+    assert tpo.LAUNCHES == before + 1
+    want = tpo.optimize_pose_plain(*args, FX, FY, CX, CY, rounds=rounds,
+                                   **bird)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    torch.testing.assert_close(got.R, want.R, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.t, want.t, atol=1e-4, rtol=0)
+    assert torch.equal(got.inliers_mono, want.inliers_mono)
+    assert torch.equal(got.inliers_bird, want.inliers_bird)
+    assert int(got.n_inliers) == int(want.n_inliers)
+    torch.testing.assert_close(got.chi2, want.chi2, rtol=1e-3, atol=1e-6)
+    if variant in ("invalid", "nan"):
+        assert torch.equal(got.R, args[0]) and torch.equal(got.t, args[1])
+
+
+@pytest.mark.cuda
+def test_pose_lm_rejects_what_the_kernel_does_not_take(cuda):
+    args, bird = _on(cuda, *_pose_problem(0, 50, 10))
+
+    def call(i=None, x=None, **kw):
+        a = list(args)
+        if i is not None:
+            a[i] = x
+        return lambda: tpo.optimize_pose(*a, FX, FY, CX, CY,
+                                         **{**bird, **kw})
+
+    Xw = args[2]
+    n = tpo.MAX_EDGES - 5    # + 10 bird edges: 5 past the limit
+    big = [torch.zeros((n, 3), device=cuda), torch.zeros((n, 2), device=cuda),
+           torch.ones(n, device=cuda),
+           torch.ones(n, dtype=torch.bool, device=cuda)]
+    for bad in (call(2, Xw.double()),                       # float64
+                call(5, args[5].float()),                   # a float mask
+                call(2, Xw.t().contiguous().t()),           # not contiguous
+                call(3, args[3].cpu()),                     # mixed devices
+                call(3, args[3][:, :1].contiguous()),       # (N,1) obs
+                call(4, args[4][1:]),                       # N-1 infos
+                call(0, args[0].reshape(9)),                # R0 (9,)
+                call(obs_pc_bird=bird["obs_pc_bird"][:, :2].contiguous()),
+                call(Xw_bird=None),                         # 3 of 4 bird
+                lambda: tpo.optimize_pose(*args[:2], *big, FX, FY, CX, CY,
+                                          **bird),          # too many edges
+                ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+def test_pose_lm_launches_twice_a_fused_step(cuda, monkeypatch):
+    """On a small System on the card every fused step launches the kernel
+    exactly twice: its two `optimize_pose` calls."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as smoke
+    from orbslam_birdview_tpu_torch.pipeline import fused_track
+
+    step, launches = fused_track.track_step_mono, []
+
+    def counted(*a, **kw):
+        before = tpo.LAUNCHES
+        out = step(*a, **kw)
+        launches.append(tpo.LAUNCHES - before)
+        return out
+
+    monkeypatch.setattr(fused_track, "track_step_mono", counted)
+    drive = smoke.render_drive(12, 0.5, 1000)
+    system = smoke.make_system(smoke.slam_config(drive, 3072, 1024), cuda)
+    for i, (img, bev, _) in enumerate(drive["frames"]):
+        system.track_monocular_with_birdview(img, bev, drive["mask"], i / 25.0)
+    system._flush()
+    assert len(launches) >= 5 and set(launches) == {2}, launches

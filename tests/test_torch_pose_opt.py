@@ -72,6 +72,24 @@ def test_optimize_pose_parity(rng, with_bird, rounds):
     np.testing.assert_allclose(out.t.numpy(), t_gt, atol=0.02)
 
 
+def test_optimize_pose_on_cpu_builds_no_kernel(rng, monkeypatch):
+    """CPU tensors take the plain version: no compiler is looked for, no
+    library is loaded and the kernel's launch count stays put."""
+    from orbslam_birdview_tpu_torch.utils import build
+
+    def no_nvcc():
+        raise AssertionError("optimize_pose on the CPU looked for nvcc")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    loaded, launches = dict(build.LOADED), tpo.LAUNCHES
+    mono, bird, _ = _problem(rng)
+    out = tpo.optimize_pose(*[torch.from_numpy(np.array(x)) for x in mono],
+                            FX, FY, CX, CY,
+                            **{k: torch.from_numpy(v) for k, v in bird.items()})
+    assert out.R.device.type == "cpu"
+    assert build.LOADED == loaded and tpo.LAUNCHES == launches
+
+
 def test_build_normal_eq_parity(rng):
     (R0, t0, Xw, uv, info, valid), bird, _ = _problem(rng)
     args = (R0, t0, Xw, uv, info, valid, FX, FY, CX, CY, bird["Xw_bird"],
