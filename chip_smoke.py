@@ -164,6 +164,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,6 +189,8 @@ BEV = 384                # BirdviewCamera default (core/camera.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 REPS = 20                # timing repetitions per kernel measurement
 PLAIN_LM_REPS = 3        # the plain pose LM: ~0.3 s a frame of launches
+PLAIN_DETECT_REPS = 5    # the plain ORB detection: ~50 ms a frame
+DETECT_SPLIT_BURST = 256   # small kernels that open detect_split's session
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of GPU clock: the queue fills behind it
 
 # Acceptance on the rendered drive, from the JAX package's own run of this
@@ -390,19 +393,22 @@ def pose_errors(R, t, R_gt, t_gt):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(img, bev, mask, cfg, bcfg, dev):
-    """The patch gather on one front and one BEV frame (2 calls over 12
-    level shapes): see `gather_measure`."""
-    return dict(
+    """The patch gather and the ORB detection on one front and one BEV
+    frame (2 calls each over 12 level shapes): see `gather_measure` and
+    `detect_measure`."""
+    extractions = [(img, cfg, None), (bev, bcfg, mask)]
+    gather = dict(
         name="patch_gather", route="cuda",
         source="orbslam_birdview_tpu_torch/csrc/patch_gather.cu",
         replaces="orbslam_birdview_tpu/frontend/patch_kernel.py:110",
         launches=None,
-        **gather_measure([(img, cfg, None), (bev, bcfg, mask)], dev),
+        **gather_measure(extractions, dev),
         note="per frame: one front + one BEV extraction, 12 levels; ms is "
              "the kernel's 2 launches (one per extraction), plain_ms and "
              "library_ms their 12 per-level calls, all with the device "
              "queue full; host_bound_ms the 2 launches as the step issues "
              "them; launch_floor_ms 2 launches of an empty kernel")
+    return gather, detect_measure(extractions, dev)
 
 
 def gather_measure(extractions, dev):
@@ -497,6 +503,139 @@ def gather_measure(extractions, dev):
                 library_ms=library_ms, host_bound_ms=kernel_host_ms,
                 launch_floor_ms=launch_floor_ms(len(calls), dev),
                 bytes=n_bytes, level_shapes=shapes)
+
+
+DETECTION_FIELDS = ("ys", "xs", "xy", "response", "octave", "valid")
+
+
+def detect_measure(extractions, dev):
+    """The ORB detection kernels on the `detect_levels` calls the extractor
+    makes for each (image, ORBConfig, mask) of `extractions` (one call
+    each, one C call and n_levels + 1 launches a call): held against
+    `detect_levels_plain` on the CPU, bit for bit on every slot, valid or
+    not, and every level image, and timed against the plain version on
+    the card, the bound from bytes and the launch floor."""
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+
+    calls, detect = [], orb.detect_levels
+
+    def record(img, mask, cfg):
+        calls.append((img, mask, cfg))
+        return detect(img, mask, cfg)
+
+    before = detect_kernel.LAUNCHES
+    orb.detect_levels = record
+    try:
+        for img, cfg, mask in extractions:
+            orb.extract_orb(img, cfg, mask=mask, device=dev)
+    finally:
+        orb.detect_levels = detect
+    check(len(calls) == len(extractions)
+          and detect_kernel.LAUNCHES - before == len(extractions),
+          f"{len(extractions)} extractions made {len(calls)} detections "
+          f"and {detect_kernel.LAUNCHES - before} kernel calls")
+    n_valid = []
+    for img, mask, cfg in calls:
+        got = detect(img, mask, cfg)
+        ref = orb.detect_levels_plain(img.cpu(), None if mask is None
+                                      else mask.cpu(), cfg)
+        for field in DETECTION_FIELDS:
+            check(torch.equal(getattr(got, field).cpu(), getattr(ref, field)),
+                  f"detection kernels' {field} != plain at "
+                  f"{tuple(img.shape)}")
+        check(len(got.padded) == len(ref.padded) == cfg.n_levels
+              and all(torch.equal(a.cpu(), b)
+                      for a, b in zip(got.padded, ref.padded)),
+              f"detection kernels' level images != plain at "
+              f"{tuple(img.shape)}")
+        n_valid.append(int(ref.valid.sum()))
+    check(min(n_valid) >= 100, f"valid keypoints {n_valid}")
+
+    def bytes_moved(img, mask, cfg):
+        # each input read once, each output written once: the image, the
+        # mask, every level read by the next, the padded levels, the
+        # slots' (y, x) and xy, response, octave, valid
+        plan = orb._detect_plan(*img.shape, None if mask is None
+                                else tuple(mask.shape), cfg, img.device)
+        n = img.numel() + (0 if mask is None else mask.numel())
+        n += sum(h * w for h, w in plan.sizes[:-1]) + plan.n_padded
+        return 4 * n + 8 * plan.k_total + 13 * plan.capacity
+
+    n_bytes = sum(bytes_moved(*c) for c in calls)
+    n_launch = sum(cfg.n_levels + 1 for _, _, cfg in calls)
+    return dict(
+        name="orb_detect_levels_f32", route="cuda",
+        source="orbslam_birdview_tpu_torch/csrc/orb_detect.cu",
+        replaces="no Pallas kernel; the level loop of "
+                 "orbslam_birdview_tpu/frontend/orb.py:474 is XLA code",
+        launches=None, max_abs_err=0.0,
+        ms=cuda_ms(lambda: [detect(*c) for c in calls]),
+        plain_ms=cuda_ms(lambda: [orb.detect_levels_plain(*c)
+                                  for c in calls], reps=PLAIN_DETECT_REPS,
+                         saturate=False),
+        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes; the true limit is latency: a chain of "
+                 f"{n_launch} launches, each level's on the level before",
+        library_ms=None,
+        host_bound_ms=cuda_ms(lambda: [detect(*c) for c in calls],
+                              saturate=False),
+        launch_floor_ms=launch_floor_ms(n_launch, dev),
+        bytes=n_bytes, valid=n_valid,
+        shapes=[[*img.shape, cfg.n_levels, cfg.min_threshold,
+                 mask is not None] for img, mask, cfg in calls],
+        note=f"per frame: the fused step's 2 calls (front, BEV with its "
+             f"mask), {n_launch} launches; ms with the device queue full; "
+             f"plain_ms the plain version's ~3,000 launches on the card as "
+             f"the host issues them; host_bound_ms the 2 calls as the "
+             f"step issues them; launch_floor_ms {n_launch} launches of "
+             f"an empty kernel")
+
+
+# the kernels of csrc/orb_detect.cu, in the profiler's names of them
+# (and not the wrapper's `orb_detect_levels_f32` range)
+DETECT_KERNEL_NAME = re.compile(r"(orb_detect_level|orb_pick)(?![A-Za-z_])")
+
+
+def detect_split(drive, dev):
+    """Launches and device µs of each ORB detection kernel in the bird
+    frame's two `detect_levels` calls (`detect_measure`'s), in a profiler
+    session of their own. A profiler session after the process's first
+    lost the first ~30 kernels it saw, so the session opens on a burst of
+    small kernels, and the counts are held to the calls' levels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam_birdview_tpu_torch.frontend import orb
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    img, bev, _ = drive["frames"][1]
+    calls = [(t(img), None, drive["cfg"]),
+             (t(bev), t(drive["mask"]), drive["bcfg"])]
+    for c in calls:
+        orb.detect_levels(*c)
+    burst = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DETECT_SPLIT_BURST):
+            burst.add_(1.0)
+        torch.cuda.synchronize()
+        for c in calls:
+            orb.detect_levels(*c)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.events():
+        found = (ev.device_type == DeviceType.CUDA
+                 and DETECT_KERNEL_NAME.search(ev.name))
+        if found:
+            n, us = split.get(found[1], (0, 0.0))
+            split[found[1]] = (n + 1, us + ev.time_range.elapsed_us())
+    want = dict(orb_detect_level=sum(cfg.n_levels for _, _, cfg in calls),
+                orb_pick=len(calls))
+    check({k: n for k, (n, _) in split.items()} == want,
+          f"the profiled detection's kernels {split}, expected {want}")
+    return split
 
 
 def launch_floor_ms(count, dev):
@@ -704,9 +843,10 @@ def slice_phase(drive, dev):
           and int(st.bird_lm.valid.sum()) >= bcfg.n_features // 4,
           "seeding produced too few landmarks")
 
-    kernel = kernel_phase(frames[1][0], frames[1][1], mask, cfg, bcfg, dev)
+    kernel, det_kernel = kernel_phase(frames[1][0], frames[1][1], mask, cfg,
+                                      bcfg, dev)
 
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     rows = run_drive(st, frames, cam, mask, True, dev)
     bird_launches = patch_kernel.LAUNCHES
     n = len(rows)
@@ -716,8 +856,11 @@ def slice_phase(drive, dev):
     check_lm_launches(pose_opt.LAUNCHES, n, dev, "seeded bird")
     kernel["launches_by_phase"] = dict(seeded_bird=bird_launches)
     lm_by_phase = dict(seeded_bird=pose_opt.LAUNCHES)
+    # 2 a fused step: the front and the BEV extraction
+    det_by_phase = dict(seeded_bird=detect_launches(bird_launches,
+                                                    "seeded bird"))
 
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     mono_rows = run_drive(st, frames[:N_MONO + 1], cam, None, False, dev)
     mono_launches = patch_kernel.LAUNCHES
     check(mono_launches == len(mono_rows),
@@ -726,8 +869,11 @@ def slice_phase(drive, dev):
     check_lm_launches(pose_opt.LAUNCHES, len(mono_rows), dev, "seeded mono")
     kernel["launches_by_phase"]["seeded_mono"] = mono_launches
     lm_by_phase["seeded_mono"] = pose_opt.LAUNCHES
+    det_by_phase["seeded_mono"] = detect_launches(mono_launches,
+                                                  "seeded mono")
     lm_kernel = pose_lm_measure(st, frames, cam, mask, dev)
     lm_kernel["launches_by_phase"] = lm_by_phase
+    det_kernel["launches_by_phase"] = det_by_phase
 
     bird_sum, mono_sum = summarize(rows), summarize(mono_rows)
     slice_rec = dict(
@@ -740,7 +886,8 @@ def slice_phase(drive, dev):
         floors=dict(front=MIN_FRONT_INLIERS, bird=MIN_BIRD_INLIERS,
                     mono=MIN_MONO_INLIERS, pos_m=MAX_POS_ERR_M,
                     rot_deg=MAX_ROT_ERR_DEG))
-    return kernel, lm_kernel, slice_rec, dict(bird=rows, mono=mono_rows), st
+    return (kernel, det_kernel, lm_kernel, slice_rec,
+            dict(bird=rows, mono=mono_rows), st)
 
 
 PROFILE_RANGES = ("front_extract", "bev_extract", "pose_lm")
@@ -869,6 +1016,27 @@ def check_launches(launches, n_frames, dev):
           f"{n_frames} bird frames on {dev.type}, expected {want}")
 
 
+def reset_launches():
+    """Zero the launch counters of the patch gather, the pose LM and the
+    ORB detection."""
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel, patch_kernel
+    from orbslam_birdview_tpu_torch.graph import pose_opt
+
+    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = detect_kernel.LAUNCHES = 0
+
+
+def detect_launches(gathers, name):
+    """The ORB detection's C calls since `reset_launches`, held to the
+    patch gather's launches: an extraction on the card makes one of each
+    (2 a fused bird step), one on a CPU none."""
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel
+
+    n = detect_kernel.LAUNCHES
+    check(n == gathers, f"{name}: ORB detection launched {n} times, the "
+          f"patch gather {gathers}; an extraction launches each once")
+    return n
+
+
 @contextlib.contextmanager
 def library_det_calls(devices):
     """While active, every `torch.linalg.det` call appends its tensor's
@@ -990,7 +1158,7 @@ def init_phase(drive, dev, floors=True):
     mapper = local_mapping.LocalMapper(cfg, store, device=dev)
     tracker = tracking.Tracker(cfg, store, mapper, device=dev)
 
-    patch_kernel.LAUNCHES = 0
+    reset_launches()
     linalg_launches(reset=True)
     attempts, fed = [], 0
     seen = dict(extract_ms=0.0, ba=None)
@@ -1017,6 +1185,7 @@ def init_phase(drive, dev, floors=True):
     check(tracker.state == tracking.OK,
           f"not initialized after {fed} frames: {attempts}")
     check_launches(launches, fed, dev)
+    det_launches = detect_launches(launches, "init")
     check_linalg_launches(solver_launches, [SVD_KERNEL], "init")
     # early failures are the 0.3 m veto at work, not faults
     last = attempts[-1]
@@ -1060,7 +1229,8 @@ def init_phase(drive, dev, floors=True):
                                  initialize_two_view=a["two_view_ms"])
                             for a in attempts[:-1]],
         first_initialize_two_view_ms=attempts[0]["two_view_ms"],
-        patch_gather_launches=launches, small_linalg_launches=solver_launches)
+        patch_gather_launches=launches, orb_detect_launches=det_launches,
+        small_linalg_launches=solver_launches)
     if floors:
         check(abs(rec["scale_ratio"] - 1.0) <= MAX_BASELINE_REL_ERR,
               f"baseline {base} m against {base_gt} m")
@@ -1105,7 +1275,7 @@ def tracked_from_init_phase(tracker, drive, dev):
     first = int(store.kf_frame_id[1])
     rest = [(img, bev, relative_pose(pose, ref_pose))
             for img, bev, pose in frames[first:]]
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     rows = run_drive(st, rest, cam, mask, True, dev,
                      start=(tracker.last_frame.R, tracker.last_frame.t))
     launches = patch_kernel.LAUNCHES
@@ -1114,6 +1284,7 @@ def tracked_from_init_phase(tracker, drive, dev):
     rec = summarize(rows)
     rec.update(first_frame=first + 1, patch_gather_launches=launches,
                pose_lm_launches=pose_opt.LAUNCHES,
+               orb_detect_launches=detect_launches(launches, "from init"),
                bundle_points=tracker._lm_n, bundle_bird=tracker._bird_n)
     return rec, rows
 
@@ -1547,7 +1718,7 @@ def system_phase(drive, dev):
     sync(dev)
     prewarm_s = time.perf_counter() - t0
     system.timer.reset()
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     fds, call_ms, mapping_call = [], [], []
     for i, (img, bev, _) in enumerate(frames):
         before = stage_counts(system)
@@ -1631,6 +1802,7 @@ def system_phase(drive, dev):
         loops_closed=system.loop_closer.n_loops_closed,
         kfdb_registered=len(system.loop_closer.kfdb.registered),
         patch_gather_launches=launches, pose_lm_launches=pose_opt.LAUNCHES,
+        orb_detect_launches=detect_launches(launches, "system"),
         final_state_ok=bool(tracker.state == tracking.OK),
         floors=dict(init_frames=MAX_INIT_FRAMES,
                     tracked_share=MIN_SYSTEM_TRACKED_SHARE,
@@ -1738,7 +1910,7 @@ def loop_phase(dev, drive):
 
     cfg = slam_config(drive)
     system = make_system(cfg, dev)
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     linalg_launches(reset=True)
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
@@ -1750,6 +1922,8 @@ def loop_phase(dev, drive):
                render_s=drive["render_s"],
                patch_gather_launches=patch_kernel.LAUNCHES,
                pose_lm_launches=pose_opt.LAUNCHES,
+               orb_detect_launches=detect_launches(patch_kernel.LAUNCHES,
+                                                   "loop"),
                floors=dict(loops=1, ate_m=MAX_LOOP_ATE_M))
     check_launches(rec["patch_gather_launches"], LOOP_FRAMES, dev)
     # the drive's initialization launches the SVD kernel, never eigh: the
@@ -1952,10 +2126,12 @@ def e2e_circular_loop_closure(dev):
     cfg.tbc_quat = tuple(lie.rot_to_quat(torch.as_tensor(seq.R_bc)).tolist())
     cfg.tbc_t = tuple(seq.t_bc.tolist())
     frames = render_frames(seq.frame, LOOP_FRAMES)
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     rec = run_circle(make_system(cfg, dev), frames, None, seq, 1 / 25.0)
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
     rec["pose_lm_launches"] = pose_opt.LAUNCHES
+    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+                                                 "e2e circle")
     check(rec["loops_closed"] >= 1, "e2e circle: no loop closed")
     check(rec["ate_m"] < 0.05, f"e2e circle: post-loop ATE {rec['ate_m']}")
     return rec
@@ -2119,7 +2295,7 @@ def e2e_phase(dev):
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.graph import pose_opt
 
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     rec = dict(
         monocular_wall_sequence=e2e_monocular_wall_sequence(dev),
         birdview_metric_scale=e2e_birdview_metric_scale(dev),
@@ -2128,7 +2304,9 @@ def e2e_phase(dev):
             dev, ROOT / "chiprun_out" / "trajectories"))
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
     rec["pose_lm_launches"] = pose_opt.LAUNCHES
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+                                                 "e2e bird")
+    reset_launches()
     rec.update(
         rgbd_wall_sequence=e2e_rgbd_wall_sequence(dev),
         stereo_wall_sequence=e2e_stereo_wall_sequence(dev),
@@ -2136,6 +2314,8 @@ def e2e_phase(dev):
         relocalization_after_lost=e2e_relocalization_after_lost(dev))
     rec["depth_patch_gather_launches"] = patch_kernel.LAUNCHES
     rec["depth_pose_lm_launches"] = pose_opt.LAUNCHES
+    rec["depth_orb_detect_launches"] = detect_launches(
+        patch_kernel.LAUNCHES, "e2e depth")
     return rec
 
 
@@ -2205,7 +2385,7 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     cfg = slam_config(drive, drive.get("P", P), drive.get("PB", PB))
     cfg.tracking.max_frames_between_kf = 2
     system = make_system(cfg, dev)
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     first_pass = {}
     for i, (img, bev, _) in enumerate(frames[:n_first]):
         fd = system.track_monocular_with_birdview(img, bev, mask, i / 25.0)
@@ -2278,6 +2458,8 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
                 fallback_used=counters.get("reloc.fallback", 0),
                 patch_gather_launches=patch_kernel.LAUNCHES,
                 pose_lm_launches=pose_opt.LAUNCHES,
+                orb_detect_launches=detect_launches(patch_kernel.LAUNCHES,
+                                                    "relocalization"),
                 small_linalg_launches=solver_launches,
                 relocalize_calls_ms=relocalize_ms,
                 **reloc_split(pnp_calls, dev))
@@ -2356,6 +2538,7 @@ def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
     check(ok, f"{name}: pose LM kernel launched {lm} times in {fused} "
           f"fused and {slow} slow frames on {dev.type}")
     return dict(patch_gather_launches=launches, pose_lm_launches=lm,
+                orb_detect_launches=detect_launches(launches, name),
                 fused_frames=fused,
                 slow_path_frames=slow,
                 launches_per_frame=dict(fused=per_fused, slow=per_slow))
@@ -2367,7 +2550,6 @@ def depth_drive(name, dev):
     patch-gather count. Ground truth in the first keyframe's camera frame
     (the map's world)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cfg = depth_config(name)
     n_frames, wall = ((STEREO_FRAMES, STEREO_WALL) if name == "stereo"
@@ -2376,7 +2558,7 @@ def depth_drive(name, dev):
     system = make_system(cfg, dev)
     system.prewarm()
     system.timer.reset()
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     fds, call_ms = [], []
     dt = 1.0 / cfg.fps
     for i, (img, second, _) in enumerate(frames):
@@ -2470,7 +2652,6 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     `read_poses=False` leaves each frame's pose unread until the drive
     ends (tools/rgbd_circle_variants.py)."""
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     if cfg is None:
         cfg = depth_config("rgbd")
@@ -2482,7 +2663,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     system.prewarm()
     obs = watch_loop(system, seq)
     system.timer.reset()
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     linalg_launches(reset=True)
     fds, call_ms = [], []
     dt = 1.0 / cfg.fps
@@ -3218,7 +3399,6 @@ def cli_kitti(tmp, dev, scale, n_frames):
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "kitti00-02_stereo.yaml",
@@ -3237,7 +3417,7 @@ def cli_kitti(tmp, dev, scale, n_frames):
     (root / "times.txt").write_text(
         "".join(f"{i / cfg.fps:e}\n" for i in range(n_frames)))
     out, out_kf = tmp / "kitti_traj.txt", tmp / "kitti_kf.txt"
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "kitti_stereo", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
@@ -3281,7 +3461,6 @@ def cli_tum(tmp, dev, scale, n_frames):
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "tum1_rgbd.yaml",
@@ -3306,7 +3485,7 @@ def cli_tum(tmp, dev, scale, n_frames):
     (root / "rgb.txt").write_text("\n".join(rgb) + "\n")
     (root / "depth.txt").write_text("\n".join(depth) + "\n")
     out, viz_dir = tmp / "tum_traj.txt", tmp / "tum_viz"
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "tum_rgbd", "--root", str(root), "--config", cfg_path,
         "--out", str(out), "--viz-every", "10", "--viz-dir", str(viz_dir),
@@ -3401,7 +3580,7 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
                   and np.array_equal(got, exp),
                   f"cli fisheye: frame {i}'s {name} differs from the render")
     out, out_kf = tmp / "fisheye_traj.txt", tmp / "fisheye_kf.txt"
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     res, tail, secs = run_cli(run_slam.main, [
         "--dataset", "fisheye_bird", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
@@ -3426,7 +3605,8 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
                      "hard-coded camera-to-base extrinsics, which the "
                      "synthetic drive's forward camera does not match",
                 patch_gather_launches=launches, launches_per_frame=2,
-                pose_lm_launches=pose_opt.LAUNCHES)
+                pose_lm_launches=pose_opt.LAUNCHES,
+                orb_detect_launches=detect_launches(launches, "cli fisheye"))
 
 
 def cli_synthetic(dev, n_frames):
@@ -3436,7 +3616,7 @@ def cli_synthetic(dev, n_frames):
     from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.graph import pose_opt
 
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     res, tail, secs = run_cli(run_synthetic.main, [
         "--mode", "bird", "--frames", str(n_frames), "--device", dev.type])
     launches = patch_kernel.LAUNCHES
@@ -3449,7 +3629,9 @@ def cli_synthetic(dev, n_frames):
           f"cli run_synthetic: METRIC ATE {res['ate_m']} m")
     return dict(res, run_s=secs, printed=tail,
                 patch_gather_launches=launches, launches_per_frame=2,
-                pose_lm_launches=pose_opt.LAUNCHES)
+                pose_lm_launches=pose_opt.LAUNCHES,
+                orb_detect_launches=detect_launches(launches,
+                                                    "cli run_synthetic"))
 
 
 def cli_viewer(system, img):
@@ -3720,11 +3902,13 @@ def parallel_circle(dev, mesh, drive, one_device):
 
     cfg = slam_config(drive)
     system = System(cfg, device=dev, mesh=mesh)
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = 0
+    reset_launches()
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
     rec["patch_gather_launches"] = patch_kernel.LAUNCHES
     rec["pose_lm_launches"] = pose_opt.LAUNCHES
+    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+                                                 "parallel circle")
     rec["shards"] = mesh.n_shards
     check_launches(rec["patch_gather_launches"], len(drive["frames"]), dev)
     check(rec["loops_closed"] >= 1, f"parallel circle: no loop closed")
@@ -3873,13 +4057,15 @@ def parallel_phase(dev, loop_drive, one_device_circle):
     t_phase = time.perf_counter()
     mesh = runtime.Mesh([dev] * PARALLEL_SHARDS)
     rec = {}
-    patch_kernel.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     rec["dryrun"] = dryrun.dryrun_multichip(PARALLEL_SHARDS, mesh=mesh)
     rec["dryrun"]["wall_s"] = time.perf_counter() - t0
     rec["dryrun"]["patch_gather_launches"] = patch_kernel.LAUNCHES
     check(patch_kernel.LAUNCHES == PARALLEL_SHARDS,
           f"parallel dry run: {patch_kernel.LAUNCHES} gather launches")
+    rec["dryrun"]["orb_detect_launches"] = detect_launches(
+        patch_kernel.LAUNCHES, "parallel dry run")
     t0 = time.perf_counter()
     rec["gba"], rec["pose_graph"] = parallel_solvers(dev, mesh)
     rec["solvers_s"] = time.perf_counter() - t0
@@ -3905,7 +4091,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from orbslam_birdview_tpu_torch.core import linalg
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel, patch_kernel
     from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import build
 
@@ -3914,22 +4100,24 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    # csrc/patch_gather.cu, small_linalg.cu and pose_lm.cu, one nvcc each,
-    # together
+    # csrc/patch_gather.cu, small_linalg.cu, pose_lm.cu and orb_detect.cu,
+    # one nvcc each, together
     build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY,
-                           pose_opt.LIBRARY])
+                           pose_opt.LIBRARY, detect_kernel.LIBRARY])
     patch_kernel._kernel(), linalg._kernels(), pose_opt._kernel()
+    detect_kernel._kernel()
     build_s = time.perf_counter() - t0
     drive = render_drive(SYSTEM_FRAMES)
     seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])
     init_drive = dict(drive, frames=drive["frames"][:N_INIT_DRIVE])
-    kernel, lm_kernel, slice_rec, rows, seeded = slice_phase(seeded_drive,
-                                                             dev)
+    kernel, det_kernel, lm_kernel, slice_rec, rows, seeded = slice_phase(
+        seeded_drive, dev)
     slice_rec.update(build_s=build_s, card=card)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record = out_dir / "chip_smoke.json"
-    full = dict(card=card, kernels=[kernel, lm_kernel], slice=slice_rec,
+    full = dict(card=card, kernels=[kernel, det_kernel, lm_kernel],
+                slice=slice_rec,
                 frames=rows)
 
     def write_record():
@@ -3972,6 +4160,9 @@ def main() -> int:
                     from_init=tracked_rec["patch_gather_launches"])
     lm_by_phase = lm_kernel["launches_by_phase"]
     lm_by_phase["from_init"] = tracked_rec["pose_lm_launches"]
+    det_by_phase = det_kernel["launches_by_phase"]
+    det_by_phase.update(init=init_rec["orb_detect_launches"],
+                        from_init=tracked_rec["orb_detect_launches"])
 
     # the SLAM loop through System: the drive, the e2e tests, lost and found
     system_rec = dict(card=card)
@@ -4025,42 +4216,37 @@ def main() -> int:
         "ms", "plain_ms", "library_ms", "bound_ms", "host_bound_ms",
         "launch_floor_ms", "bytes", "max_abs_err", "note")}
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kitti["max_abs_err"])
-    by_phase.update(system=system_rec["drive"]["patch_gather_launches"],
-                    loop=loop_rec["circle"]["patch_gather_launches"],
-                    e2e_bird=system_rec["e2e"]["patch_gather_launches"],
-                    e2e_loop=loop_rec["e2e_circle"]["patch_gather_launches"],
-                    relocalization=system_rec["relocalization"][
-                        "patch_gather_launches"],
-                    depth_stereo=depth_rec["stereo"]["patch_gather_launches"],
-                    depth_rgbd=depth_rec["rgbd"]["patch_gather_launches"],
-                    depth_rgbd_circle=depth_rec["rgbd_circle"][
-                        "patch_gather_launches"],
-                    e2e_depth=system_rec["e2e"][
-                        "depth_patch_gather_launches"],
-                    **{f"cli_{k}": cli_rec[k]["patch_gather_launches"]
-                       for k in ("kitti_stereo", "tum_rgbd", "fisheye_bird",
-                                 "run_synthetic")},
+    # each path's record, by the name its launches go under
+    paths = dict(
+        system=system_rec["drive"], loop=loop_rec["circle"],
+        e2e_bird=system_rec["e2e"], e2e_loop=loop_rec["e2e_circle"],
+        relocalization=system_rec["relocalization"],
+        depth_stereo=depth_rec["stereo"], depth_rgbd=depth_rec["rgbd"],
+        depth_rgbd_circle=depth_rec["rgbd_circle"],
+        **{f"cli_{k}": cli_rec[k] for k in (
+            "kitti_stereo", "tum_rgbd", "fisheye_bird", "run_synthetic")},
+        parallel_circle=parallel_rec["circle"])
+    e2e = system_rec["e2e"]
+
+    def launches_of(key):
+        return {name: rec[key] for name, rec in paths.items()}
+
+    by_phase.update(launches_of("patch_gather_launches"),
+                    e2e_depth=e2e["depth_patch_gather_launches"],
                     parallel_dryrun=parallel_rec["dryrun"][
-                        "patch_gather_launches"],
-                    parallel_circle=parallel_rec["circle"][
                         "patch_gather_launches"])
     check(all(n > 0 for n in by_phase.values()),
           f"a path never launched the patch gather: {by_phase}")
     kernel["launches"] = sum(by_phase.values())
-    lm_by_phase.update(
-        system=system_rec["drive"]["pose_lm_launches"],
-        loop=loop_rec["circle"]["pose_lm_launches"],
-        e2e_bird=system_rec["e2e"]["pose_lm_launches"],
-        e2e_loop=loop_rec["e2e_circle"]["pose_lm_launches"],
-        relocalization=system_rec["relocalization"]["pose_lm_launches"],
-        depth_stereo=depth_rec["stereo"]["pose_lm_launches"],
-        depth_rgbd=depth_rec["rgbd"]["pose_lm_launches"],
-        depth_rgbd_circle=depth_rec["rgbd_circle"]["pose_lm_launches"],
-        e2e_depth=system_rec["e2e"]["depth_pose_lm_launches"],
-        **{f"cli_{k}": cli_rec[k]["pose_lm_launches"]
-           for k in ("kitti_stereo", "tum_rgbd", "fisheye_bird",
-                     "run_synthetic")},
-        parallel_circle=parallel_rec["circle"]["pose_lm_launches"])
+    det_by_phase.update(launches_of("orb_detect_launches"),
+                        e2e_depth=e2e["depth_orb_detect_launches"],
+                        parallel_dryrun=parallel_rec["dryrun"][
+                            "orb_detect_launches"])
+    check(det_by_phase == by_phase, f"the ORB detection's launches "
+          f"{det_by_phase} != the patch gather's {by_phase}")
+    det_kernel["launches"] = sum(det_by_phase.values())
+    lm_by_phase.update(launches_of("pose_lm_launches"),
+                       e2e_depth=e2e["depth_pose_lm_launches"])
     # the fisheye CLI's run never initializes (its record's note), so it
     # poses no frame: every other path tracks and launches the LM
     check(all(n > 0 for k, n in lm_by_phase.items()
@@ -4073,6 +4259,7 @@ def main() -> int:
     prof = profile_step(seeded, drive["frames"], drive["cam"], drive["mask"],
                         dev, slice_rec["bird"]["median_step_ms"])
     slice_rec["profile"] = {k: v for k, v in prof.items() if k != "top"}
+    det_kernel["device_us_by_kernel"] = detect_split(seeded_drive, dev)
     full["frames"]["profile_top"] = prof["top"]
     slice_rec["small_reference"] = reference_phase(dev,
                                                    drive["frames"][0][0])
@@ -4097,6 +4284,7 @@ def main() -> int:
             "host_bound_ms", "launch_floor_ms", "launches_by_phase")
     kernels_line = {"kernels": [
         {k: kernel[k] for k in (*keys, "kitti_stereo")},
+        {k: det_kernel[k] for k in (*keys, "device_us_by_kernel")},
         {k: lm_kernel[k] for k in keys},
         *({k: line[k] for k in keys} for line in solver_kernels)]}
     full["kernels_line"] = kernels_line["kernels"]

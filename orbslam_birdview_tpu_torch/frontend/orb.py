@@ -14,6 +14,10 @@ numerics where they decide integers:
   the CPU and the GPU alike, where a matmul would sum in yet another order;
 - keypoint selection keeps the first of equal values everywhere: per-cell
   `argmax` and a stable descending sort in place of `approx_max_k`;
+- the detection of every level (pyramid, FAST, suppression, selection,
+  sub-pixel fit: `detect_levels`) is the port's CUDA kernels on the card
+  (`detect_kernel.py`), bit for bit `detect_levels_plain`, which CPU
+  tensors take;
 - the patch gather is the port's CUDA kernel (`patch_kernel.py`);
 - BRIEF samples the rounded blurred patches with one indexed gather where
   the TPU used one-hot matmuls; the bits are the same.
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from . import patch_kernel
+from . import detect_kernel, patch_kernel
 from .keypoints import Keypoints, pack_bits, unpack_bits_to_pm1
 
 HALF_PATCH = 15  # orientation patch radius
@@ -148,8 +152,7 @@ def gaussian_blur7(img):
     return F.conv2d(x, k.reshape(1, 1, 7, 1))[0, 0]
 
 
-@functools.lru_cache(maxsize=None)
-def _resize_taps(n_out: int, n_in: int, device: torch.device):
+def _resize_taps_np(n_out: int, n_in: int):
     """The two taps of bilinear interpolation with half-pixel centres
     (cv::resize INTER_LINEAR): (i0, i1, w0, w1) per output index. Where the
     clamp puts both taps on one pixel their weights merge into one, as they
@@ -164,7 +167,14 @@ def _resize_taps(n_out: int, n_in: int, device: torch.device):
     same = i0c == i1c
     w0[same] = w0[same] + w1[same]
     w1[same] = 0.0
-    return tuple(torch.from_numpy(v).to(device) for v in (i0c, i1c, w0, w1))
+    return i0c, i1c, w0, w1
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_taps(n_out: int, n_in: int, device: torch.device):
+    """`_resize_taps_np` on a device, made once per device."""
+    return tuple(torch.from_numpy(v).to(device)
+                 for v in _resize_taps_np(n_out, n_in))
 
 
 def resize_bilinear(img, h: int, w: int):
@@ -313,18 +323,6 @@ def extract_patches(img, ys, xs, size: int = PATCH):
                                        size)
 
 
-def extract_patches_levels(imgs, ys_levels, xs_levels, size: int = PATCH):
-    """`extract_patches` for all levels of one extraction in one call of
-    the patch-gather kernel: lists of (H_l,W_l) images and (K_l,) int
-    coords -> (ΣK_l,size,size), level 0 first."""
-    counts = [ys.shape[0] for ys in ys_levels]
-    # one cast for all levels; the kernel reads each level's slice in place
-    ys32 = torch.cat(ys_levels).to(torch.int32).split(counts)
-    xs32 = torch.cat(xs_levels).to(torch.int32).split(counts)
-    return patch_kernel.gather_patches_levels(
-        [_pad_for_patches(img, size) for img in imgs], ys32, xs32, size)
-
-
 @functools.lru_cache(maxsize=None)
 def _blur_matrix(n_in: int, device: torch.device):
     """Banded (n_in−6, n_in) matrix applying the 7-tap Gaussian (sigma=2)
@@ -431,71 +429,147 @@ def _border_mask(h: int, w: int, margin: int, device: torch.device):
     return m.to(device)
 
 
-def _extract_impl(img, mask, cfg: ORBConfig) -> Keypoints:
-    height, width = img.shape
-    dev = img.device
-    sizes = level_sizes(height, width, cfg)
-    budgets = cfg.level_budgets()
-    scales = cfg.level_scales()
+class Detection(NamedTuple):
+    """One extraction's detection, every level's slots in level order.
 
-    out_xy, out_resp, out_oct, out_val = [], [], [], []
-    lvl_imgs, lvl_ys, lvl_xs = [], [], []
+    `padded`: each level's image, edge-padded by PATCH // 2 for the patch
+    gather; `ys`, `xs`: (K,) int32 keypoint coordinates on their level, K
+    the levels' slots summed; `xy` (C,2), `response` (C,), `octave` (C,)
+    int32 and `valid` (C,) bool, C the capacity (`padded_capacity`): image
+    coordinates, the response (−inf where not valid) and the level of each
+    slot, with the slots past K empty."""
+    padded: list
+    ys: torch.Tensor
+    xs: torch.Tensor
+    xy: torch.Tensor
+    response: torch.Tensor
+    octave: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def levels(self) -> list:
+        """The level images: views of `padded` without the padding."""
+        c = PATCH // 2
+        return [p[c:p.shape[0] - c, c:p.shape[1] - c] for p in self.padded]
+
+
+def detect_level_plain(lvl_img, mask, level: int, cfg: ORBConfig):
+    """One pyramid level's detection: FAST at `min_threshold` inside the
+    border margin (and the mask, resized to the level, where given), 3×3
+    suppression, the spatially uniform pick of the level's slots and the
+    sub-pixel fit. Returns (ys, xs, xy, response, valid), response 0 where
+    not valid."""
+    h, w = lvl_img.shape
+    resp, corner = fast_response(lvl_img, cfg.min_threshold)
+    resp = torch.where(corner, resp, 0.0)
+    resp = resp * _border_mask(h, w, EDGE_MARGIN, lvl_img.device)
+    if mask is not None:
+        lvl_mask = resize_bilinear(mask, h, w) > 0.5
+        resp = torch.where(lvl_mask, resp, 0.0)
+    k_l = max(cfg.level_budgets()[level], 1)
+    ys, xs, r, valid = select_uniform_topk(nms3(resp), k_l, cfg.cell,
+                                           cfg.per_cell)
+    # subpixel refinement: quadratic fit on the response surface
+    dx, dy = _subpixel_offsets(resp, ys, xs)
+    s = cfg.level_scales()[level]
+    xy = torch.stack([(xs.float() + dx) * s, (ys.float() + dy) * s], -1)
+    return ys, xs, xy, r, valid
+
+
+def detect_levels_plain(img, mask, cfg: ORBConfig) -> Detection:
+    """The plain version of `detect_levels`: the integer-valued pyramid
+    (rounded after every resize, as cv::ORB keeps uint8 levels), each
+    level through `detect_level_plain`."""
+    height, width = img.shape
+    sizes = level_sizes(height, width, cfg)
+    padded, ys_l, xs_l, xy_l, resp_l, oct_l, val_l = ([] for _ in range(7))
     lvl_img = torch.round(img)
-    for l in range(cfg.n_levels):
-        h, w = sizes[l]
+    for l, (h, w) in enumerate(sizes):
         if l > 0:
             lvl_img = torch.round(resize_bilinear(lvl_img, h, w))
-        resp, corner = fast_response(lvl_img, cfg.min_threshold)
-        resp = torch.where(corner, resp, 0.0)
-        resp = resp * _border_mask(h, w, EDGE_MARGIN, dev)
-        if mask is not None:
-            lvl_mask = resize_bilinear(mask, h, w) > 0.5
-            resp = torch.where(lvl_mask, resp, 0.0)
-        resp_raw = resp
-        resp = nms3(resp)
-        k_l = max(budgets[l], 1)
-        ys, xs, r, valid = select_uniform_topk(resp, k_l, cfg.cell,
-                                               cfg.per_cell)
-        lvl_imgs.append(lvl_img)
-        lvl_ys.append(ys)
-        lvl_xs.append(xs)
-        # subpixel refinement: quadratic fit on the response surface
-        dx, dy = _subpixel_offsets(resp_raw, ys, xs)
-        s = scales[l]
-        out_xy.append(torch.stack([(xs.float() + dx) * s,
-                                   (ys.float() + dy) * s], -1))
-        out_resp.append(r)
-        out_oct.append(torch.full((k_l,), l, dtype=torch.int32, device=dev))
-        out_val.append(valid)
+        ys, xs, xy, r, valid = detect_level_plain(lvl_img, mask, l, cfg)
+        padded.append(_pad_for_patches(lvl_img, PATCH))
+        ys_l.append(ys)
+        xs_l.append(xs)
+        xy_l.append(xy)
+        resp_l.append(r)
+        oct_l.append(torch.full((ys.shape[0],), l, dtype=torch.int32,
+                                device=img.device))
+        val_l.append(valid)
+    valid = torch.cat(val_l)
+    # capacity padded to a multiple of 128, as in the reference
+    pad = cfg.padded_capacity() - valid.shape[0]
+    valid = F.pad(valid, (0, pad))
+    return Detection(
+        padded=padded,
+        ys=torch.cat(ys_l).to(torch.int32),
+        xs=torch.cat(xs_l).to(torch.int32),
+        xy=F.pad(torch.cat(xy_l), (0, 0, 0, pad)),
+        response=torch.where(valid, F.pad(torch.cat(resp_l), (0, pad)),
+                             -math.inf),
+        octave=F.pad(torch.cat(oct_l), (0, pad)),
+        valid=valid)
 
-    xy = torch.cat(out_xy, 0)
-    response = torch.cat(out_resp, 0)
-    octave = torch.cat(out_oct, 0)
-    valid = torch.cat(out_val, 0)
+
+@functools.lru_cache(maxsize=None)
+def _detect_plan(height: int, width: int, mask_shape, cfg: ORBConfig,
+                 device: torch.device) -> detect_kernel.Plan:
+    """The kernels' layout and resize taps for one image size, mask size
+    and configuration, made once per device."""
+    sizes = level_sizes(height, width, cfg)
+    taps = []
+    for l, (h, w) in enumerate(sizes):
+        prev = sizes[l - 1] if l else None
+        taps.append((
+            _resize_taps_np(h, prev[0]) if l else None,
+            _resize_taps_np(w, prev[1]) if l else None,
+            _resize_taps_np(h, mask_shape[0]) if mask_shape else None,
+            _resize_taps_np(w, mask_shape[1]) if mask_shape else None))
+    return detect_kernel.Plan(
+        (height, width), sizes, [max(b, 1) for b in cfg.level_budgets()],
+        cfg.level_scales(), cfg.cell, cfg.per_cell, cfg.min_threshold,
+        EDGE_MARGIN, PATCH // 2, cfg.padded_capacity(), taps, mask_shape,
+        device)
+
+
+def detect_levels(img, mask, cfg: ORBConfig) -> Detection:
+    """Every level's detection for one (H,W) float32 image and optional
+    mask (nonzero = allowed). CPU tensors take `detect_levels_plain`; CUDA
+    tensors launch the kernels of `detect_kernel` once (contiguous float32
+    on one device; anything else raises)."""
+    dev = img.device
+    if dev.type == "cpu":
+        return detect_levels_plain(img, mask, cfg)
+    if img.dim() != 2 or (mask is not None and mask.dim() != 2):
+        raise ValueError("detect_levels: the image and the mask must be 2-D")
+    plan = _detect_plan(img.shape[0], img.shape[1],
+                        None if mask is None else tuple(mask.shape), cfg, dev)
+    return Detection(*detect_kernel.detect(img, mask, plan))
+
+
+def _extract_impl(img, mask, cfg: ORBConfig) -> Keypoints:
+    det = detect_levels(img, mask, cfg)
+    valid = det.valid
     # one gather for all levels, then orientation + BRIEF over its patches
-    patches_all = extract_patches_levels(lvl_imgs, lvl_ys, lvl_xs)
+    counts = [max(b, 1) for b in cfg.level_budgets()]
+    patches_all = patch_kernel.gather_patches_levels(
+        det.padded, det.ys.split(counts), det.xs.split(counts), PATCH)
     angle = ic_angle_from_patches(patches_all)
     desc_u8 = brief_from_patches(blur_patches(patches_all), angle)
-
     # capacity padded to a multiple of 128, as in the reference
-    total = xy.shape[0]
-    pad = -(-total // 128) * 128 - total
+    pad = valid.shape[0] - angle.shape[0]
     if pad:
-        xy = F.pad(xy, (0, 0, 0, pad))
-        response = F.pad(response, (0, pad))
         angle = F.pad(angle, (0, pad))
-        octave = F.pad(octave, (0, pad))
-        valid = F.pad(valid, (0, pad))
         desc_u8 = F.pad(desc_u8, (0, 0, 0, pad))
 
     desc_u8 = torch.where(valid[:, None], desc_u8, 0).to(torch.uint8)
     desc_pm1 = torch.where(valid[:, None], unpack_bits_to_pm1(desc_u8),
                            0).to(torch.int8)
     return Keypoints(
-        xy=xy,
-        response=torch.where(valid, response, -math.inf),
+        xy=det.xy,
+        response=det.response,
         angle=angle,
-        octave=octave,
+        octave=det.octave,
         valid=valid,
         desc_u8=desc_u8,
         desc_pm1=desc_pm1,
@@ -510,7 +584,8 @@ def extract_orb(img, cfg: ORBConfig = ORBConfig(), mask=None,
     stream's vehicle-footprint mask. Runs on `cuda` unless `device` says
     otherwise; inputs are moved there."""
     dev = resolve_device(device)
-    img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+    img = torch.as_tensor(img, dtype=torch.float32, device=dev).contiguous()
     if mask is not None:
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(mask, dtype=torch.float32,
+                               device=dev).contiguous()
     return _extract_impl(img, mask, cfg)

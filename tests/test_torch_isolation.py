@@ -28,6 +28,7 @@ MODULES = [
     "orbslam_birdview_tpu_torch.core.camera",
     "orbslam_birdview_tpu_torch.frontend.keypoints",
     "orbslam_birdview_tpu_torch.frontend.patch_kernel",
+    "orbslam_birdview_tpu_torch.frontend.detect_kernel",
     "orbslam_birdview_tpu_torch.frontend.orb",
     "orbslam_birdview_tpu_torch.frontend.matcher",
     "orbslam_birdview_tpu_torch.frontend.stereo",

@@ -14,6 +14,7 @@ from orbslam_birdview_tpu_torch.core import linalg
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
 from orbslam_birdview_tpu_torch.graph import pose_opt as tpo
 
+import orb_detect_cases as odc
 import small_linalg_cases as sl
 
 S = 48
@@ -450,6 +451,92 @@ def test_pose_lm_launches_twice_a_fused_step(cuda, monkeypatch):
         before = tpo.LAUNCHES
         out = step(*a, **kw)
         launches.append(tpo.LAUNCHES - before)
+        return out
+
+    monkeypatch.setattr(fused_track, "track_step_mono", counted)
+    drive = smoke.render_drive(12, 0.5, 1000)
+    system = smoke.make_system(smoke.slam_config(drive, 3072, 1024), cuda)
+    for i, (img, bev, _) in enumerate(drive["frames"]):
+        system.track_monocular_with_birdview(img, bev, drive["mask"], i / 25.0)
+    system._flush()
+    assert len(launches) >= 5 and set(launches) == {2}, launches
+
+
+# ---------------------------------------------------------------------------
+# ORB detection (csrc/orb_detect.cu): every slot, valid or not, and every
+# level image equal to detect_levels_plain's on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", odc.CASES)
+def test_orb_detect_matches_plain(cuda, name):
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+
+    img, mask, cfg = odc.case(name)
+    img = torch.from_numpy(img)
+    mask = None if mask is None else torch.from_numpy(mask)
+    ref = orb.detect_levels_plain(img, mask, cfg)
+    before = detect_kernel.LAUNCHES
+    out = orb.detect_levels(img.to(cuda),
+                            None if mask is None else mask.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert detect_kernel.LAUNCHES == before + 1
+    for field in ("ys", "xs", "xy", "response", "octave", "valid"):
+        r, o = getattr(ref, field), getattr(out, field).cpu()
+        assert o.dtype == r.dtype and o.shape == r.shape, field
+        assert torch.equal(o, r), (field, int((o != r).sum()))
+    for l, (r, o) in enumerate(zip(ref.padded, out.padded)):
+        assert torch.equal(o.cpu(), r), ("padded level", l)
+    for l, (r, o) in enumerate(zip(ref.levels, out.levels)):
+        assert torch.equal(o.cpu(), r), ("level", l)
+    assert int(ref.valid.sum()) >= odc.min_valid(name)
+
+
+@pytest.mark.cuda
+def test_orb_detect_rejects_what_the_kernel_does_not_take(cuda):
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+
+    img = torch.full((200, 300), 50.0, device=cuda)
+    cfg = orb.ORBConfig(n_features=500, n_levels=3)
+    before = detect_kernel.LAUNCHES
+    for bad in (lambda: orb.detect_levels(img.double(), None, cfg),
+                lambda: orb.detect_levels(img.t(), None, cfg),
+                lambda: orb.detect_levels(img, img.t(), cfg),
+                lambda: orb.detect_levels(img, img.half(), cfg),
+                lambda: orb.detect_levels(img, img.cpu(), cfg),
+                lambda: orb.detect_levels(img[None], None, cfg),
+                lambda: orb.detect_levels(img, None, cfg._replace(cell=33)),
+                lambda: orb.detect_levels(img, None,
+                                          cfg._replace(per_cell=9)),
+                lambda: orb.detect_levels(img, None,
+                                          cfg._replace(n_levels=17,
+                                                       scale_factor=1.05)),
+                # more slots than the level has candidates
+                lambda: orb.detect_levels(img[:48, :48].contiguous(), None,
+                                          cfg)):
+        with pytest.raises(ValueError):
+            bad()
+    assert detect_kernel.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_orb_detect_launches_twice_a_fused_step(cuda, monkeypatch):
+    """On a small System on the card every fused bird step launches the
+    detection exactly twice: its front and its BEV extraction."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as smoke
+    from orbslam_birdview_tpu_torch.frontend import detect_kernel
+    from orbslam_birdview_tpu_torch.pipeline import fused_track
+
+    step, launches = fused_track.track_step_mono, []
+
+    def counted(*a, **kw):
+        before = detect_kernel.LAUNCHES
+        out = step(*a, **kw)
+        launches.append(detect_kernel.LAUNCHES - before)
         return out
 
     monkeypatch.setattr(fused_track, "track_step_mono", counted)

@@ -24,6 +24,8 @@ from orbslam_birdview_tpu_torch.core.camera import BirdviewCamera, PinholeCamera
 from orbslam_birdview_tpu_torch.frontend import orb as torb
 from orbslam_birdview_tpu_torch.utils import synth
 
+import orb_detect_cases as odc
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))
@@ -259,3 +261,103 @@ def test_extract_orb_end_to_end(frames, stream):
         out.desc_pm1.numpy(),
         _n(jkeypoints.unpack_bits_to_pm1(jnp.asarray(out.desc_u8.numpy())))
         * valid[:, None])
+
+
+# ---------------------------------------------------------------------------
+# detect_level_plain (the plain version of the card's detection kernels) at
+# the bird rig's shapes: each level from the reference's own level image,
+# against the reference's per-level functions, slot for slot
+# ---------------------------------------------------------------------------
+
+BIRD_FRONT = (400, 950, 8)
+BIRD_BEV = (384, 384, 4)
+
+
+@pytest.fixture(scope="module")
+def bird_levels():
+    """stream -> (reference level images, mask or None, port ORBConfig)."""
+    tex = synth.make_texture(5, size=1024, n_blobs=900)
+    out = {}
+    for stream, (h, w, n_levels) in (("front", BIRD_FRONT),
+                                     ("bev", BIRD_BEV)):
+        img = np.round(tex[:h, :w] if stream == "front"
+                       else tex[300:300 + h, 200:200 + w])
+        mask = (synth.footprint_mask(BirdviewCamera(width=w, height=h))
+                .astype(np.float32) if stream == "bev" else None)
+        cfg = jorb.ORBConfig(**(odc.BIRD if stream == "front"
+                                else odc.BIRD_BEV)._asdict())
+        assert cfg.n_levels == n_levels
+        lvl, levels = jnp.asarray(img, jnp.float32), []
+        for l, (hl, wl) in enumerate(jorb.level_sizes(h, w, cfg)):
+            if l:
+                lvl = jnp.round(jorb.resize_bilinear(lvl, hl, wl))
+            levels.append(_n(lvl))
+        out[stream] = (levels, mask, torb.ORBConfig(**cfg._asdict()))
+    return out
+
+
+def _reference_level(lvl, mask, level, cfg):
+    """The reference's `_extract_impl` loop body for one level, eagerly."""
+    h, w = lvl.shape
+    resp, corner = jorb.fast_response(jnp.asarray(lvl), cfg.min_threshold)
+    resp = jnp.where(corner, resp, 0.0)
+    resp = resp * jorb._border_mask(h, w, jorb.EDGE_MARGIN)
+    if mask is not None:
+        lvl_mask = jorb.resize_bilinear(jnp.asarray(mask), h, w) > 0.5
+        resp = jnp.where(lvl_mask, resp, 0.0)
+    k_l = max(cfg.level_budgets()[level], 1)
+    ys, xs, r, valid = jorb.select_uniform_topk(jorb.nms3(resp), k_l,
+                                                cfg.cell, cfg.per_cell)
+    dx, dy = jorb._subpixel_offsets(resp, ys, xs)
+    s = cfg.level_scales()[level]
+    xy = jnp.stack([(xs.astype(jnp.float32) + dx) * s,
+                    (ys.astype(jnp.float32) + dy) * s], -1)
+    return ys, xs, xy, r, valid
+
+
+@pytest.mark.parametrize("stream,level",
+                         [("front", l) for l in range(BIRD_FRONT[2])]
+                         + [("bev", l) for l in range(BIRD_BEV[2])])
+def test_detect_level_plain_exact_at_bird_shapes(bird_levels, stream, level):
+    levels, mask, cfg = bird_levels[stream]
+    lvl = levels[level]
+    ref = _reference_level(lvl, mask, level, cfg)
+    out = torb.detect_level_plain(_t(lvl), None if mask is None else _t(mask),
+                                  level, cfg)
+    for name, r, o in zip(("ys", "xs", "xy", "response", "valid"), ref, out):
+        np.testing.assert_array_equal(o.numpy(), _n(r), err_msg=name)
+    if level < 3:
+        assert _n(ref[4]).sum() > 50
+
+
+@pytest.mark.parametrize("stream", ["front", "bev"])
+def test_detect_levels_plain_is_its_levels(bird_levels, stream):
+    """`detect_levels_plain` lays its levels' detections into the slot
+    layout `extract_orb` returns, with the levels edge-padded for the
+    gather; its pyramid rounds as `resize_bilinear` does, within the
+    budget stated at the top of this file against the reference's."""
+    levels, mask, cfg = bird_levels[stream]
+    m = None if mask is None else _t(mask)
+    det = torb.detect_levels_plain(_t(levels[0]), m, cfg)
+    slots = [max(b, 1) for b in cfg.level_budgets()]
+    begin = np.cumsum([0] + slots)
+    assert det.valid.shape == (cfg.padded_capacity(),)
+    assert not det.valid[begin[-1]:].any()
+    assert (det.response[begin[-1]:] == -np.inf).all()
+    assert (det.xy[begin[-1]:] == 0).all()
+    for l, lvl in enumerate(det.levels):
+        diff = np.abs(lvl.numpy() - levels[l])
+        assert diff.max() <= 1.0 and (diff > 0).mean() <= 1e-3, l
+        c = torb.PATCH // 2
+        np.testing.assert_array_equal(det.padded[l].numpy(),
+                                      np.pad(lvl.numpy(), c, mode="edge"))
+        ys, xs, xy, r, valid = torb.detect_level_plain(lvl, m, l, cfg)
+        sl = slice(begin[l], begin[l + 1])
+        np.testing.assert_array_equal(det.ys[sl].numpy(), ys.numpy())
+        np.testing.assert_array_equal(det.xs[sl].numpy(), xs.numpy())
+        np.testing.assert_array_equal(det.xy[sl].numpy(), xy.numpy())
+        np.testing.assert_array_equal(det.valid[sl].numpy(), valid.numpy())
+        np.testing.assert_array_equal(
+            det.response[sl].numpy(),
+            np.where(valid.numpy(), r.numpy(), -np.inf))
+        assert (det.octave[sl] == l).all()

@@ -201,14 +201,18 @@ def test_levels_other_devices_raise():
 
 
 def test_extractor_levels_equal_per_level_patches(rng):
-    """`extract_patches_levels` pads every level and casts the coordinates
-    once; its output is the per-level `extract_patches` concatenated."""
-    imgs = [torch.from_numpy(_image(rng, h, w)) for h, w, _ in LEVELS[:4]]
-    ys_l = [torch.from_numpy(rng.integers(0, h, k)) for h, _, k in LEVELS[:4]]
-    xs_l = [torch.from_numpy(rng.integers(0, w, k)) for _, w, k in LEVELS[:4]]
-    out = torb.extract_patches_levels(imgs, ys_l, xs_l)
+    """The extractor's one gather over every level's edge-padded image
+    (`Detection.padded`) and its int32 slots is the per-level
+    `extract_patches` concatenated."""
+    img = torch.from_numpy(np.round(_image(rng, 160, 224)))
+    cfg = torb.ORBConfig(n_features=300, n_levels=4)
+    det = torb.detect_levels_plain(img, None, cfg)
+    counts = [max(b, 1) for b in cfg.level_budgets()]
+    ys_l, xs_l = det.ys.split(counts), det.xs.split(counts)
+    out = tpk.gather_patches_levels(det.padded, ys_l, xs_l, torb.PATCH)
     ref = torch.cat([torb.extract_patches(a, y, x)
-                     for a, y, x in zip(imgs, ys_l, xs_l)], 0)
+                     for a, y, x in zip(det.levels, ys_l, xs_l)], 0)
     assert torch.equal(out, ref)
     # a patch is centred on its keypoint
-    assert out[0, torb.PATCH_C, torb.PATCH_C] == imgs[0][ys_l[0][0], xs_l[0][0]]
+    assert out[0, torb.PATCH_C, torb.PATCH_C] == det.levels[0][ys_l[0][0],
+                                                               xs_l[0][0]]

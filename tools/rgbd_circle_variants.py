@@ -39,9 +39,11 @@ def main() -> int:
     dev = torch.device(args.device)
     if dev.type == "cuda":
         from orbslam_birdview_tpu_torch.core import linalg
-        from orbslam_birdview_tpu_torch.frontend import patch_kernel
+        from orbslam_birdview_tpu_torch.frontend import (detect_kernel,
+                                                         patch_kernel)
         from orbslam_birdview_tpu_torch.utils import build
-        build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY])
+        build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY,
+                               detect_kernel.LIBRARY])
         print(smoke.card_line(), flush=True)
     for name, kf_gap, read in (
             ("smoke", smoke.RGBD_CIRCLE_MAX_FRAMES_BETWEEN_KF, True),
