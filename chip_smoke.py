@@ -169,10 +169,14 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from orbslam_birdview_tpu_torch.utils import build
 
 ROOT = Path(__file__).resolve().parent
 N_FRAMES = 10            # seeded bird frames after the seed frame
@@ -192,6 +196,10 @@ PLAIN_LM_REPS = 3        # the plain pose LM: ~0.3 s a frame of launches
 PLAIN_DETECT_REPS = 5    # the plain ORB detection: ~50 ms a frame
 DETECT_SPLIT_BURST = 256   # small kernels that open detect_split's session
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of GPU clock: the queue fills behind it
+# the kernels' C entry points, by the names `build.LAUNCHES` counts them under
+GATHER, DETECT, POSE_LM = ("patch_gather_levels_f32", "orb_detect_levels_f32",
+                           "pose_lm_f32")
+SVD_KERNEL, EIGH_KERNEL = "jacobi_svd_f32", "jacobi_eigh_f32"
 
 # Acceptance on the rendered drive, from the JAX package's own run of this
 # drive cut to half size (tools/port_reference.py; PERF.md): it kept >= 231
@@ -392,57 +400,127 @@ def pose_errors(R, t, R_gt, t_gt):
 # kernels
 # ---------------------------------------------------------------------------
 
+@dataclass
+class KernelEntry:
+    """One hand-written kernel for `measure_kernel`: the calls the path
+    makes of its wrapper, as `captured` gives them; `kernel`, `plain` and
+    `library` run one call's arguments; `hold` holds the kernel against
+    its reference on them (raising SmokeFailure) and returns the largest
+    error; `bytes`, each input byte read once and each output byte written
+    once, and `launches` over the calls; `extra` the entry's own fields of
+    the record."""
+    name: str
+    source: str
+    replaces: str
+    calls: list
+    kernel: Callable
+    plain: Callable
+    hold: Callable
+    bytes: int
+    launches: int
+    note: str
+    library: Optional[Callable] = None
+    plain_reps: int = REPS
+    plain_saturate: bool = True
+    bound_by: str = "bytes"
+    extra: dict = field(default_factory=dict)
+
+
+def captured(module, attr, run):
+    """The calls that `run()` makes of `module.attr`, (args, kwargs) each
+    with every tensor cloned, the attribute swapped for a recorder while
+    it runs."""
+    calls, real = [], getattr(module, attr)
+
+    def keep(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def record(*args, **kw):
+        calls.append(([keep(a) for a in args],
+                      {k: keep(v) for k, v in kw.items()}))
+        return real(*args, **kw)
+
+    setattr(module, attr, record)
+    try:
+        run()
+    finally:
+        setattr(module, attr, real)
+    return calls
+
+
+def measure_kernel(k: KernelEntry, dev) -> dict:
+    """Hold the kernel on every call's input, then time one replay of the
+    calls: the kernel with the device queue full (`ms`) and as the host
+    issues it (`host_bound_ms`), the plain version, the library call, the
+    launch floor under as many launches; and the bound from bytes. The
+    `kernels` record's fields of one kernel."""
+    max_err = max(k.hold(*a, **kw) for a, kw in k.calls)
+
+    def replay(fn):
+        return lambda: [fn(*a, **kw) for a, kw in k.calls]
+
+    return dict(
+        name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+        launches=None, max_abs_err=max_err, ms=cuda_ms(replay(k.kernel)),
+        plain_ms=cuda_ms(replay(k.plain), reps=k.plain_reps,
+                         saturate=k.plain_saturate),
+        bound_ms=k.bytes / HBM_BYTES_PER_S * 1e3, bound_by=k.bound_by,
+        library_ms=None if k.library is None else cuda_ms(
+            replay(k.library)),
+        host_bound_ms=cuda_ms(replay(k.kernel), saturate=False),
+        launch_floor_ms=launch_floor_ms(k.launches, dev),
+        bytes=k.bytes, **k.extra, note=k.note)
+
+
+def extract_each(extractions, dev):
+    """A run of `extract_orb` on each (image, ORBConfig, mask) given."""
+    from orbslam_birdview_tpu_torch.frontend import orb
+
+    return lambda: [orb.extract_orb(img, cfg, mask=mask, device=dev)
+                    for img, cfg, mask in extractions]
+
+
 def kernel_phase(img, bev, mask, cfg, bcfg, dev):
     """The patch gather and the ORB detection on one front and one BEV
-    frame (2 calls each over 12 level shapes): see `gather_measure` and
-    `detect_measure`."""
+    frame (2 calls each over 12 level shapes)."""
     extractions = [(img, cfg, None), (bev, bcfg, mask)]
-    gather = dict(
-        name="patch_gather", route="cuda",
-        source="orbslam_birdview_tpu_torch/csrc/patch_gather.cu",
-        replaces="orbslam_birdview_tpu/frontend/patch_kernel.py:110",
-        launches=None,
-        **gather_measure(extractions, dev),
+    gather = gather_entry(
+        extractions, dev,
         note="per frame: one front + one BEV extraction, 12 levels; ms is "
              "the kernel's 2 launches (one per extraction), plain_ms and "
              "library_ms their 12 per-level calls, all with the device "
              "queue full; host_bound_ms the 2 launches as the step issues "
              "them; launch_floor_ms 2 launches of an empty kernel")
-    return gather, detect_measure(extractions, dev)
+    return (measure_kernel(gather, dev),
+            measure_kernel(detect_entry(extractions, dev), dev))
 
 
-def gather_measure(extractions, dev):
-    """Hold the patch gather against its plain version on the inputs the
-    extractor gives it for each (image, ORBConfig, mask) of `extractions`
-    (one call each) and on starts outside the image, and time the calls
-    against the plain version, one PyTorch library call and the bound from
-    bytes."""
-    from orbslam_birdview_tpu_torch.frontend import orb, patch_kernel
+def gather_entry(extractions, dev, note) -> KernelEntry:
+    """The patch gather on the inputs the extractor gives it for each
+    (image, ORBConfig, mask) of `extractions` (one call each), held
+    against its plain version whole, level by level and one level at a
+    time, with the library call held to the plain version, on those
+    inputs and on starts outside the image."""
+    from orbslam_birdview_tpu_torch.frontend import patch_kernel
 
-    calls = []
-    launch = patch_kernel.gather_patches_levels
-
-    def record(padded_levels, ys_levels, xs_levels, size):
-        calls.append((padded_levels, ys_levels, xs_levels, size))
-        return launch(padded_levels, ys_levels, xs_levels, size)
-
-    patch_kernel.gather_patches_levels = record
-    try:
-        for img, cfg, mask in extractions:
-            orb.extract_orb(img, cfg, mask=mask, device=dev)
-    finally:
-        patch_kernel.gather_patches_levels = launch
+    calls = captured(patch_kernel, "gather_patches_levels",
+                     extract_each(extractions, dev))
     want = [cfg.n_levels for _, cfg, _ in extractions]
-    check([len(c[0]) for c in calls] == want,
+    check([len(a[0]) for a, _ in calls] == want,
           f"expected gathers of {want} levels, got "
-          f"{[len(c[0]) for c in calls]}")
-    # the same calls level by level: (padded, ys, xs, size) per level
-    levels = [lv for pl, yl, xl, size in calls
-              for lv in zip(pl, yl, xl, [size] * len(pl))]
+          f"{[len(a[0]) for a, _ in calls]}")
 
-    def hold(padded_levels, ys_levels, xs_levels, size):
-        """Kernel against plain for one call, whole and level by level."""
-        out = launch(padded_levels, ys_levels, xs_levels, size)
+    def each_level(fn):
+        return lambda pl, yl, xl, size: [fn(*lv, size)
+                                         for lv in zip(pl, yl, xl)]
+
+    def library(padded, ys, xs, size):
+        yc, xc = patch_kernel.clamp_starts(padded, ys.long(), xs.long(), size)
+        return padded.unfold(0, size, 1).unfold(1, size, 1)[yc, xc]
+
+    def hold_starts(padded_levels, ys_levels, xs_levels, size):
+        out = patch_kernel.gather_patches_levels(padded_levels, ys_levels,
+                                                 xs_levels, size)
         ref = patch_kernel.gather_patches_levels_plain(
             padded_levels, ys_levels, xs_levels, size)
         torch.cuda.synchronize()
@@ -459,89 +537,72 @@ def gather_measure(extractions, dev):
             check(torch.equal(patch_kernel.gather_patches(padded, ys, xs,
                                                           size), one),
                   f"one-level kernel != plain at {tuple(padded.shape)}")
+            check(torch.equal(library(padded, ys, xs, size), one),
+                  "library call != plain")
             err = max(err, float((part - one).abs().max()))
         return err
 
-    max_err = max(hold(*c) for c in calls)
-    # starts past the far edge and negative starts: the clamp
     gen = torch.Generator(device=dev).manual_seed(0)
-    for padded_levels, ys_levels, _, size in calls:
+
+    def hold(padded_levels, ys_levels, xs_levels, size):
+        """The call's starts, then starts past the far edge and negative
+        starts at the same levels: the clamp."""
         def starts(extent):
             return [torch.randint(-size, p.shape[extent] + size,
                                   ys.shape, generator=gen, device=dev,
                                   dtype=torch.int32)
                     for p, ys in zip(padded_levels, ys_levels)]
+        err = hold_starts(padded_levels, ys_levels, xs_levels, size)
         ys_out, xs_out = starts(0), starts(1)
         check(any(bool((y < 0).any()) for y in ys_out)
               and any(bool((x > p.shape[1] - size).any())
                       for x, p in zip(xs_out, padded_levels)),
               "the out-of-range case has no out-of-range start")
-        max_err = max(max_err, hold(padded_levels, ys_out, xs_out, size))
+        return max(err, hold_starts(padded_levels, ys_out, xs_out, size))
 
-    shapes = [[*padded.shape, ys.shape[0]] for padded, ys, _, _ in levels]
-    n_bytes = sum((padded.numel() + 2 * ys.numel()) * 4
+    levels = [(padded, ys, size) for (pl, yl, _, size), _ in calls
+              for padded, ys in zip(pl, yl)]
+    return KernelEntry(
+        name="patch_gather",
+        source="orbslam_birdview_tpu_torch/csrc/patch_gather.cu",
+        replaces="orbslam_birdview_tpu/frontend/patch_kernel.py:110",
+        calls=calls, kernel=patch_kernel.gather_patches_levels,
+        plain=each_level(patch_kernel.gather_patches_plain), hold=hold,
+        library=each_level(library),
+        bytes=sum((padded.numel() + 2 * ys.numel()) * 4
                   + ys.shape[0] * size * size * 4
-                  for padded, ys, _, size in levels)
-
-    def library(padded, ys, xs, size):
-        yc, xc = patch_kernel.clamp_starts(padded, ys.long(), xs.long(), size)
-        return padded.unfold(0, size, 1).unfold(1, size, 1)[yc, xc]
-
-    for lv in levels:
-        check(torch.equal(library(*lv),
-                          patch_kernel.gather_patches_plain(*lv)),
-              "library call != plain")
-    kernel_ms = cuda_ms(lambda: [launch(*c) for c in calls])
-    plain_ms = cuda_ms(lambda: [patch_kernel.gather_patches_plain(*lv)
-                                for lv in levels])
-    library_ms = cuda_ms(lambda: [library(*lv) for lv in levels])
-    # the same 2 launches as the step issues them: host wrapper included
-    kernel_host_ms = cuda_ms(lambda: [launch(*c) for c in calls],
-                             saturate=False)
-    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=library_ms, host_bound_ms=kernel_host_ms,
-                launch_floor_ms=launch_floor_ms(len(calls), dev),
-                bytes=n_bytes, level_shapes=shapes)
+                  for padded, ys, size in levels),
+        launches=len(calls), note=note,
+        extra=dict(level_shapes=[[*padded.shape, ys.shape[0]]
+                                 for padded, ys, _ in levels]))
 
 
 DETECTION_FIELDS = ("ys", "xs", "xy", "response", "octave", "valid")
 
 
-def detect_measure(extractions, dev):
+def detect_entry(extractions, dev) -> KernelEntry:
     """The ORB detection kernels on the `detect_levels` calls the extractor
     makes for each (image, ORBConfig, mask) of `extractions` (one call
-    each, one C call and n_levels + 1 launches a call): held against
+    each, one C call and n_levels + 1 launches a call), held against
     `detect_levels_plain` on the CPU, bit for bit on every slot, valid or
-    not, and every level image, and timed against the plain version on
-    the card, the bound from bytes and the launch floor."""
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+    not, and every level image; the plain version timed on the card."""
+    from orbslam_birdview_tpu_torch.frontend import orb
 
-    calls, detect = [], orb.detect_levels
-
-    def record(img, mask, cfg):
-        calls.append((img, mask, cfg))
-        return detect(img, mask, cfg)
-
-    before = detect_kernel.LAUNCHES
-    orb.detect_levels = record
-    try:
-        for img, cfg, mask in extractions:
-            orb.extract_orb(img, cfg, mask=mask, device=dev)
-    finally:
-        orb.detect_levels = detect
+    before = build.LAUNCHES[DETECT]
+    calls = captured(orb, "detect_levels", extract_each(extractions, dev))
     check(len(calls) == len(extractions)
-          and detect_kernel.LAUNCHES - before == len(extractions),
+          and build.LAUNCHES[DETECT] - before == len(extractions),
           f"{len(extractions)} extractions made {len(calls)} detections "
-          f"and {detect_kernel.LAUNCHES - before} kernel calls")
+          f"and {build.LAUNCHES[DETECT] - before} kernel calls")
     n_valid = []
-    for img, mask, cfg in calls:
-        got = detect(img, mask, cfg)
+
+    def hold(img, mask, cfg):
+        got = orb.detect_levels(img, mask, cfg)
         ref = orb.detect_levels_plain(img.cpu(), None if mask is None
                                       else mask.cpu(), cfg)
-        for field in DETECTION_FIELDS:
-            check(torch.equal(getattr(got, field).cpu(), getattr(ref, field)),
-                  f"detection kernels' {field} != plain at "
+        for name in DETECTION_FIELDS:
+            check(torch.equal(getattr(got, name).cpu(), getattr(ref, name)),
+                  f"detection kernels' {name} != plain at "
                   f"{tuple(img.shape)}")
         check(len(got.padded) == len(ref.padded) == cfg.n_levels
               and all(torch.equal(a.cpu(), b)
@@ -549,7 +610,8 @@ def detect_measure(extractions, dev):
               f"detection kernels' level images != plain at "
               f"{tuple(img.shape)}")
         n_valid.append(int(ref.valid.sum()))
-    check(min(n_valid) >= 100, f"valid keypoints {n_valid}")
+        check(n_valid[-1] >= 100, f"valid keypoints {n_valid}")
+        return 0.0
 
     def bytes_moved(img, mask, cfg):
         # each input read once, each output written once: the image, the
@@ -561,28 +623,21 @@ def detect_measure(extractions, dev):
         n += sum(h * w for h, w in plan.sizes[:-1]) + plan.n_padded
         return 4 * n + 8 * plan.k_total + 13 * plan.capacity
 
-    n_bytes = sum(bytes_moved(*c) for c in calls)
-    n_launch = sum(cfg.n_levels + 1 for _, _, cfg in calls)
-    return dict(
-        name="orb_detect_levels_f32", route="cuda",
+    n_launch = sum(cfg.n_levels + 1 for (_, _, cfg), _ in calls)
+    return KernelEntry(
+        name="orb_detect_levels_f32",
         source="orbslam_birdview_tpu_torch/csrc/orb_detect.cu",
         replaces="no Pallas kernel; the level loop of "
                  "orbslam_birdview_tpu/frontend/orb.py:474 is XLA code",
-        launches=None, max_abs_err=0.0,
-        ms=cuda_ms(lambda: [detect(*c) for c in calls]),
-        plain_ms=cuda_ms(lambda: [orb.detect_levels_plain(*c)
-                                  for c in calls], reps=PLAIN_DETECT_REPS,
-                         saturate=False),
-        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes; the true limit is latency: a chain of "
-                 f"{n_launch} launches, each level's on the level before",
-        library_ms=None,
-        host_bound_ms=cuda_ms(lambda: [detect(*c) for c in calls],
-                              saturate=False),
-        launch_floor_ms=launch_floor_ms(n_launch, dev),
-        bytes=n_bytes, valid=n_valid,
-        shapes=[[*img.shape, cfg.n_levels, cfg.min_threshold,
-                 mask is not None] for img, mask, cfg in calls],
+        calls=calls, kernel=orb.detect_levels, plain=orb.detect_levels_plain,
+        hold=hold, bytes=sum(bytes_moved(*a) for a, _ in calls),
+        launches=n_launch, plain_reps=PLAIN_DETECT_REPS,
+        plain_saturate=False,
+        bound_by=f"bytes; the true limit is latency: a chain of {n_launch} "
+                 f"launches, each level's on the level before",
+        extra=dict(valid=n_valid, shapes=[
+            [*img.shape, cfg.n_levels, cfg.min_threshold, mask is not None]
+            for (img, mask, cfg), _ in calls]),
         note=f"per frame: the fused step's 2 calls (front, BEV with its "
              f"mask), {n_launch} launches; ms with the device queue full; "
              f"plain_ms the plain version's ~3,000 launches on the card as "
@@ -598,7 +653,7 @@ DETECT_KERNEL_NAME = re.compile(r"(orb_detect_level|orb_pick)(?![A-Za-z_])")
 
 def detect_split(drive, dev):
     """Launches and device µs of each ORB detection kernel in the bird
-    frame's two `detect_levels` calls (`detect_measure`'s), in a profiler
+    frame's two `detect_levels` calls (`detect_entry`'s), in a profiler
     session of their own. A profiler session after the process's first
     lost the first ~30 kernels it saw, so the session opens on a burst of
     small kernels, and the counts are held to the calls' levels."""
@@ -640,72 +695,53 @@ def detect_split(drive, dev):
 
 def launch_floor_ms(count, dev):
     """`count` launches of an empty kernel of one block
-    (`small_linalg_empty` of csrc/small_linalg.cu) through the wrappers'
-    ctypes launch, timed as `cuda_ms` times the kernels: the floor under
-    that many launches of any of them."""
+    (`small_linalg_empty` of csrc/small_linalg.cu) through `build.launch`,
+    the path every kernel takes, timed as `cuda_ms` times the kernels: the
+    floor under that many launches of any of them."""
     from orbslam_birdview_tpu_torch.core import linalg
 
-    empty = linalg._kernels()[2]
-    return cuda_ms(lambda: [linalg._launch(empty, (), dev)
+    return cuda_ms(lambda: [build.launch(linalg.EMPTY, dev)
                             for _ in range(count)])
 
 
-def pose_lm_measure(st, frames, cam, mask, dev):
+def pose_lm_entry(st, frames, cam, mask, dev) -> KernelEntry:
     """The pose LM kernel on the two `optimize_pose` calls of one seeded
     bird step, at the fused caps (P mono and PB bird edges: the 8-CTA
-    cluster that reduces through distributed shared memory): held against
-    `optimize_pose_plain` on the same tensors, and timed against it, the
-    bound from bytes and the launch floor."""
+    cluster that reduces through distributed shared memory), held against
+    `optimize_pose_plain` on the same tensors."""
     from orbslam_birdview_tpu_torch.graph import pose_opt
 
-    calls, solve = [], pose_opt.optimize_pose
-
-    def keep(x):
-        return x.clone() if isinstance(x, torch.Tensor) else x
-
-    def record(*args, **kw):
-        calls.append(([keep(a) for a in args],
-                      {k: keep(v) for k, v in kw.items()}))
-        return solve(*args, **kw)
-
-    pose_opt.optimize_pose = record
-    try:
-        run_drive(st, frames[:2], cam, mask, True, dev)
-    finally:
-        pose_opt.optimize_pose = solve
+    calls = captured(pose_opt, "optimize_pose", lambda: run_drive(
+        st, frames[:2], cam, mask, True, dev))
     edges = [[a[2].shape[0], kw["Xw_bird"].shape[0]] for a, kw in calls]
     check(edges == [[P, PB]] * 2, f"pose LM calls of {edges} edges")
-    max_err = 0.0
-    for a, kw in calls:
-        got = solve(*a, **kw)
+
+    def hold(*a, **kw):
+        got = pose_opt.optimize_pose(*a, **kw)
         want = pose_opt.optimize_pose_plain(*a, **kw)
-        max_err = max(max_err, float((got.R - want.R).abs().max()),
-                      float((got.t - want.t).abs().max()))
+        err = max(float((got.R - want.R).abs().max()),
+                  float((got.t - want.t).abs().max()))
         check(torch.equal(got.inliers_mono, want.inliers_mono)
               and torch.equal(got.inliers_bird, want.inliers_bird)
               and int(got.n_inliers) == int(want.n_inliers),
               f"pose LM kernel's inliers != plain at {kw['rounds']} rounds")
-    check(max_err <= 1e-4, f"pose LM kernel's R, t off plain by {max_err}")
-    # every input byte read once (R0, t0; a mono edge 25 B, a bird edge
-    # 29 B), every output byte written once (R, t, masks, count, cost)
-    n_bytes = sum(48 + 25 * n + 29 * nb + 48 + n + nb + 8 for n, nb in edges)
-    return dict(
-        name="pose_lm_f32", route="cuda",
+        check(err <= 1e-4, f"pose LM kernel's R, t off plain by {err}")
+        return err
+
+    return KernelEntry(
+        name="pose_lm_f32",
         source="orbslam_birdview_tpu_torch/csrc/pose_lm.cu",
         replaces="no Pallas kernel; the LM of "
                  "orbslam_birdview_tpu/graph/pose_opt.py is XLA code",
-        launches=None, max_abs_err=max_err,
-        ms=cuda_ms(lambda: [solve(*a, **kw) for a, kw in calls]),
-        plain_ms=cuda_ms(lambda: [pose_opt.optimize_pose_plain(*a, **kw)
-                                  for a, kw in calls], reps=PLAIN_LM_REPS),
-        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes; the true limit is the dependent chain of up to "
-                 "66 builds and solves",
-        library_ms=None,
-        host_bound_ms=cuda_ms(lambda: [solve(*a, **kw) for a, kw in calls],
-                              saturate=False),
-        launch_floor_ms=launch_floor_ms(len(calls), dev),
-        bytes=n_bytes, edges=edges,
+        calls=calls, kernel=pose_opt.optimize_pose,
+        plain=pose_opt.optimize_pose_plain, hold=hold,
+        # every input byte read once (R0, t0; a mono edge 25 B, a bird edge
+        # 29 B), every output byte written once (R, t, masks, count, cost)
+        bytes=sum(48 + 25 * n + 29 * nb + 48 + n + nb + 8 for n, nb in edges),
+        launches=len(calls), plain_reps=PLAIN_LM_REPS,
+        bound_by="bytes; the true limit is the dependent chain of up to 66 "
+                 "builds and solves",
+        extra=dict(edges=edges),
         note="per frame: the fused step's 2 calls (2 and 4 rounds); ms "
              "the 2 launches with the device queue full; plain_ms the "
              "plain version's ~24,700 launches, more than the launch "
@@ -831,9 +867,6 @@ def render_drive(n_frames=N_FRAMES + 1, scale=1.0, features=2000,
 
 
 def slice_phase(drive, dev):
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
-
     cam, bv, cfg, bcfg, seq, frames, mask, render_s = (
         drive[k] for k in ("cam", "bv", "cfg", "bcfg", "seq", "frames",
                            "mask", "render_s"))
@@ -848,30 +881,31 @@ def slice_phase(drive, dev):
 
     reset_launches()
     rows = run_drive(st, frames, cam, mask, True, dev)
-    bird_launches = patch_kernel.LAUNCHES
+    bird_launches = build.LAUNCHES[GATHER]
     n = len(rows)
     # one launch per extraction: front and BEV
     check(bird_launches == 2 * n,
           f"patch kernel launched {bird_launches} times in {n} bird frames")
-    check_lm_launches(pose_opt.LAUNCHES, n, dev, "seeded bird")
+    check_lm_launches(build.LAUNCHES[POSE_LM], n, dev, "seeded bird")
     kernel["launches_by_phase"] = dict(seeded_bird=bird_launches)
-    lm_by_phase = dict(seeded_bird=pose_opt.LAUNCHES)
+    lm_by_phase = dict(seeded_bird=build.LAUNCHES[POSE_LM])
     # 2 a fused step: the front and the BEV extraction
     det_by_phase = dict(seeded_bird=detect_launches(bird_launches,
                                                     "seeded bird"))
 
     reset_launches()
     mono_rows = run_drive(st, frames[:N_MONO + 1], cam, None, False, dev)
-    mono_launches = patch_kernel.LAUNCHES
+    mono_launches = build.LAUNCHES[GATHER]
     check(mono_launches == len(mono_rows),
           f"patch kernel launched {mono_launches} times in "
           f"{len(mono_rows)} mono frames")
-    check_lm_launches(pose_opt.LAUNCHES, len(mono_rows), dev, "seeded mono")
+    check_lm_launches(build.LAUNCHES[POSE_LM], len(mono_rows), dev,
+                      "seeded mono")
     kernel["launches_by_phase"]["seeded_mono"] = mono_launches
-    lm_by_phase["seeded_mono"] = pose_opt.LAUNCHES
+    lm_by_phase["seeded_mono"] = build.LAUNCHES[POSE_LM]
     det_by_phase["seeded_mono"] = detect_launches(mono_launches,
                                                   "seeded mono")
-    lm_kernel = pose_lm_measure(st, frames, cam, mask, dev)
+    lm_kernel = measure_kernel(pose_lm_entry(st, frames, cam, mask, dev), dev)
     lm_kernel["launches_by_phase"] = lm_by_phase
     det_kernel["launches_by_phase"] = det_by_phase
 
@@ -1016,22 +1050,18 @@ def check_launches(launches, n_frames, dev):
           f"{n_frames} bird frames on {dev.type}, expected {want}")
 
 
-def reset_launches():
-    """Zero the launch counters of the patch gather, the pose LM and the
-    ORB detection."""
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel, patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
-
-    patch_kernel.LAUNCHES = pose_opt.LAUNCHES = detect_kernel.LAUNCHES = 0
+def reset_launches(names=(GATHER, POSE_LM, DETECT)):
+    """Zero the launch counts of the entry points `names`: the patch
+    gather, the pose LM and the ORB detection."""
+    for name in names:
+        build.LAUNCHES[name] = 0
 
 
 def detect_launches(gathers, name):
     """The ORB detection's C calls since `reset_launches`, held to the
     patch gather's launches: an extraction on the card makes one of each
     (2 a fused bird step), one on a CPU none."""
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel
-
-    n = detect_kernel.LAUNCHES
+    n = build.LAUNCHES[DETECT]
     check(n == gathers, f"{name}: ORB detection launched {n} times, the "
           f"patch gather {gathers}; an extraction launches each once")
     return n
@@ -1146,7 +1176,6 @@ def reprojection_px(store, cam, kf):
 def init_phase(drive, dev, floors=True):
     """Feed the drive through `Tracker.process` until it has initialized;
     hold the map against ground truth. Returns (tracker, record)."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.mapping.mapstore import MapStore
     from orbslam_birdview_tpu_torch.pipeline import local_mapping, tracking
 
@@ -1180,7 +1209,7 @@ def init_phase(drive, dev, floors=True):
                                  two_view_ms=stages.get("init.two_view", 0.0)))
         if tracker.state == tracking.OK:
             break
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     solver_launches = linalg_launches()
     check(tracker.state == tracking.OK,
           f"not initialized after {fed} frames: {attempts}")
@@ -1252,8 +1281,6 @@ def tracked_from_init_phase(tracker, drive, dev):
     bundles `_refresh_local_map` builds out of the store and the second
     keyframe's pose. Ground truth is expressed in the reference keyframe's
     camera frame (the map's world); nothing is aligned."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import state
 
     seq, frames, mask, cam = (drive[k] for k in ("seq", "frames", "mask",
@@ -1278,12 +1305,12 @@ def tracked_from_init_phase(tracker, drive, dev):
     reset_launches()
     rows = run_drive(st, rest, cam, mask, True, dev,
                      start=(tracker.last_frame.R, tracker.last_frame.t))
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     check_launches(launches, len(rows), dev)
-    check_lm_launches(pose_opt.LAUNCHES, len(rows), dev, "from init")
+    check_lm_launches(build.LAUNCHES[POSE_LM], len(rows), dev, "from init")
     rec = summarize(rows)
     rec.update(first_frame=first + 1, patch_gather_launches=launches,
-               pose_lm_launches=pose_opt.LAUNCHES,
+               pose_lm_launches=build.LAUNCHES[POSE_LM],
                orb_detect_launches=detect_launches(launches, "from init"),
                bundle_points=tracker._lm_n, bundle_bird=tracker._bird_n)
     return rec, rows
@@ -1705,8 +1732,6 @@ def system_phase(drive, dev):
     """The drive through `System.track_monocular_with_birdview` at full
     width, then `_flush`. Ground truth is expressed in the first keyframe's
     camera frame (the map's world); nothing is aligned in scale."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import tracking
 
     seq, frames, mask = drive["seq"], drive["frames"], drive["mask"]
@@ -1737,7 +1762,7 @@ def system_phase(drive, dev):
     t_flush = time.perf_counter()
     system._flush()
     flush_ms = (time.perf_counter() - t_flush) * 1e3
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     check_launches(launches, len(frames), dev)
     store, mapper, tracker = system.store, system.mapper, system.tracker
     ok = [fd.pose_ok for fd in fds]
@@ -1780,7 +1805,7 @@ def system_phase(drive, dev):
         slow_path_frames=counters.get("track.slow", 0),
         fallback_frames=counters.get("track.fallback", 0),
         relocalizations=counters.get("reloc.ok", 0),
-        realized_summary_batches=tracker.batch_stats,
+        realized_summary_blocks=tracker.batch_stats,
         forced_retire_s=float(sum(timer.get("fused.retire", []))),
         **err,
         call_ms=dict(
@@ -1801,7 +1826,8 @@ def system_phase(drive, dev):
         vocab_load_ms=system.vocab_load_ms,
         loops_closed=system.loop_closer.n_loops_closed,
         kfdb_registered=len(system.loop_closer.kfdb.registered),
-        patch_gather_launches=launches, pose_lm_launches=pose_opt.LAUNCHES,
+        patch_gather_launches=launches,
+        pose_lm_launches=build.LAUNCHES[POSE_LM],
         orb_detect_launches=detect_launches(launches, "system"),
         final_state_ok=bool(tracker.state == tracking.OK),
         floors=dict(init_frames=MAX_INIT_FRAMES,
@@ -1905,9 +1931,6 @@ def loop_phase(dev, drive):
     metric ATE under MAX_LOOP_ATE_M with no scale alignment after the loop
     and the GBA. Then one local BA and one GBA round on its map under the
     profiler."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
-
     cfg = slam_config(drive)
     system = make_system(cfg, dev)
     reset_launches()
@@ -1920,9 +1943,9 @@ def loop_phase(dev, drive):
                features=[cfg.orb.n_features,
                          cfg.effective_bird_orb().n_features],
                render_s=drive["render_s"],
-               patch_gather_launches=patch_kernel.LAUNCHES,
-               pose_lm_launches=pose_opt.LAUNCHES,
-               orb_detect_launches=detect_launches(patch_kernel.LAUNCHES,
+               patch_gather_launches=build.LAUNCHES[GATHER],
+               pose_lm_launches=build.LAUNCHES[POSE_LM],
+               orb_detect_launches=detect_launches(build.LAUNCHES[GATHER],
                                                    "loop"),
                floors=dict(loops=1, ate_m=MAX_LOOP_ATE_M))
     check_launches(rec["patch_gather_launches"], LOOP_FRAMES, dev)
@@ -2113,8 +2136,6 @@ def e2e_circular_loop_closure(dev):
     from orbslam_birdview_tpu_torch.core import lie
     from orbslam_birdview_tpu_torch.core.camera import (BirdviewCamera,
                                                         PinholeCamera)
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.frontend.orb import ORBConfig
     from orbslam_birdview_tpu_torch.utils.synth import BirdSequence
 
@@ -2128,9 +2149,9 @@ def e2e_circular_loop_closure(dev):
     frames = render_frames(seq.frame, LOOP_FRAMES)
     reset_launches()
     rec = run_circle(make_system(cfg, dev), frames, None, seq, 1 / 25.0)
-    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
-    rec["pose_lm_launches"] = pose_opt.LAUNCHES
-    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+    rec["patch_gather_launches"] = build.LAUNCHES[GATHER]
+    rec["pose_lm_launches"] = build.LAUNCHES[POSE_LM]
+    rec["orb_detect_launches"] = detect_launches(build.LAUNCHES[GATHER],
                                                  "e2e circle")
     check(rec["loops_closed"] >= 1, "e2e circle: no loop closed")
     check(rec["ate_m"] < 0.05, f"e2e circle: post-loop ATE {rec['ate_m']}")
@@ -2292,9 +2313,6 @@ def e2e_phase(dev):
     """The mono / mono+bird tests of tests/test_e2e.py, then its four
     stereo and RGB-D tests, with loop closing on as the reference's tests
     run them; the patch-gather launches of each group."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
-
     reset_launches()
     rec = dict(
         monocular_wall_sequence=e2e_monocular_wall_sequence(dev),
@@ -2302,9 +2320,9 @@ def e2e_phase(dev):
         reset_and_localization_mode=e2e_reset_and_localization_mode(dev),
         trajectory_savers=e2e_trajectory_savers(
             dev, ROOT / "chiprun_out" / "trajectories"))
-    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
-    rec["pose_lm_launches"] = pose_opt.LAUNCHES
-    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+    rec["patch_gather_launches"] = build.LAUNCHES[GATHER]
+    rec["pose_lm_launches"] = build.LAUNCHES[POSE_LM]
+    rec["orb_detect_launches"] = detect_launches(build.LAUNCHES[GATHER],
                                                  "e2e bird")
     reset_launches()
     rec.update(
@@ -2312,10 +2330,10 @@ def e2e_phase(dev):
         stereo_wall_sequence=e2e_stereo_wall_sequence(dev),
         localization_mode_vo_fallback=e2e_localization_mode_vo_fallback(dev),
         relocalization_after_lost=e2e_relocalization_after_lost(dev))
-    rec["depth_patch_gather_launches"] = patch_kernel.LAUNCHES
-    rec["depth_pose_lm_launches"] = pose_opt.LAUNCHES
+    rec["depth_patch_gather_launches"] = build.LAUNCHES[GATHER]
+    rec["depth_pose_lm_launches"] = build.LAUNCHES[POSE_LM]
     rec["depth_orb_detect_launches"] = detect_launches(
-        patch_kernel.LAUNCHES, "e2e depth")
+        build.LAUNCHES[GATHER], "e2e depth")
     return rec
 
 
@@ -2376,8 +2394,6 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
     timed (a device sync around each, inside the call's own time) and
     split by `reloc_split`. The solver kernels' counts are those of the
     recovering call alone."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.pipeline import tracking
     from orbslam_birdview_tpu_torch.solvers import pnp
 
@@ -2456,9 +2472,9 @@ def reloc_phase(drive, dev, n_first=RELOC_FRAMES, revisit=5):
                 pnp_calls=counters.get("reloc.pnp", 0),
                 kfdb_candidates=counters.get("reloc.kfdb_candidates", 0),
                 fallback_used=counters.get("reloc.fallback", 0),
-                patch_gather_launches=patch_kernel.LAUNCHES,
-                pose_lm_launches=pose_opt.LAUNCHES,
-                orb_detect_launches=detect_launches(patch_kernel.LAUNCHES,
+                patch_gather_launches=build.LAUNCHES[GATHER],
+                pose_lm_launches=build.LAUNCHES[POSE_LM],
+                orb_detect_launches=detect_launches(build.LAUNCHES[GATHER],
                                                     "relocalization"),
                 small_linalg_launches=solver_launches,
                 relocalize_calls_ms=relocalize_ms,
@@ -2523,8 +2539,6 @@ def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
     pose LM's, counted since the same reset: 2 a fused frame and as many
     as its tracking calls a slow-path one, at least one on a path that
     ran the card's LM at all."""
-    from orbslam_birdview_tpu_torch.graph import pose_opt
-
     counters = dict(system.tracker.timer.counters)
     fused, slow = counters.get("track.fused", 0), counters.get("track.slow",
                                                                0)
@@ -2533,7 +2547,7 @@ def launch_rule(system, launches, n_frames, per_fused, per_slow, dev, name):
     want = per_fused * fused + per_slow * slow if dev.type == "cuda" else 0
     check(launches == want, f"{name}: patch kernel launched {launches} "
           f"times, expected {want} ({fused} fused, {slow} slow frames)")
-    lm = pose_opt.LAUNCHES
+    lm = build.LAUNCHES[POSE_LM]
     ok = (lm >= 2 * fused and lm > 0) if dev.type == "cuda" else lm == 0
     check(ok, f"{name}: pose LM kernel launched {lm} times in {fused} "
           f"fused and {slow} slow frames on {dev.type}")
@@ -2549,8 +2563,6 @@ def depth_drive(name, dev):
     `prewarm`, then `_flush`; held to the depth bars and the exact
     patch-gather count. Ground truth in the first keyframe's camera frame
     (the map's world)."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-
     cfg = depth_config(name)
     n_frames, wall = ((STEREO_FRAMES, STEREO_WALL) if name == "stereo"
                       else (RGBD_FRAMES, RGBD_WALL))
@@ -2571,7 +2583,7 @@ def depth_drive(name, dev):
         sync(dev)
         call_ms.append((time.perf_counter() - t_call) * 1e3)
     system._flush()
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     store, mapper, tracker = system.store, system.mapper, system.tracker
     counters = dict(tracker.timer.counters)
     per = (2, 3) if name == "stereo" else (1, 1)
@@ -2651,8 +2663,6 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
     the keyframes' metric ATE after the loop and the GBA, no scale.
     `read_poses=False` leaves each frame's pose unread until the drive
     ends (tools/rgbd_circle_variants.py)."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-
     if cfg is None:
         cfg = depth_config("rgbd")
         cfg.tracking.max_frames_between_kf = RGBD_CIRCLE_MAX_FRAMES_BETWEEN_KF
@@ -2679,7 +2689,7 @@ def rgbd_circle_drive(dev, cfg=None, n_frames=RGBD_CIRCLE_FRAMES,
         call_ms.append((time.perf_counter() - t_call) * 1e3)
     system._flush()
     ok = [fd.pose_ok for fd in fds]
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     small_linalg = linalg_launches()
     rule = launch_rule(system, launches, n_frames, 1, 1, dev, "rgbd_circle")
     lc, store, mapper = system.loop_closer, system.store, system.mapper
@@ -2800,11 +2810,10 @@ def depth_phase(dev):
         cfg = depth_config("stereo")
         seq, frames, _ = render_depth_drive("stereo", cfg, 2, STEREO_WALL)
         left, right = frames[1][:2]
-        rec["gather_kitti_stereo"] = dict(
+        rec["gather_kitti_stereo"] = measure_kernel(gather_entry(
+            [(left, cfg.orb, None), (right, cfg.orb, None)], dev,
             note="one fused stereo frame's 2 gathers (left and right, 8 "
-                 "levels each) at 1241x376, 2000 features",
-            **gather_measure([(left, cfg.orb, None),
-                              (right, cfg.orb, None)], dev))
+                 "levels each) at 1241x376, 2000 features"), dev)
     rec["small_reference"] = small_stereo_reference(dev)
     return rec
 
@@ -2857,18 +2866,15 @@ def small_pnp_reference(dev):
 # ---------------------------------------------------------------------------
 
 F32_FLOP_PER_S = 67e12   # H100 SXM f32 outside the tensor cores, data sheet
-SVD_KERNEL, EIGH_KERNEL = "jacobi_svd_f32", "jacobi_eigh_f32"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def linalg_launches(reset=False):
     """The solver kernels' launch counts (a copy); zeroed after the read
     with `reset`."""
-    from orbslam_birdview_tpu_torch.core import linalg
-
-    counts = dict(linalg.LAUNCHES)
+    counts = {name: build.LAUNCHES[name] for name in (SVD_KERNEL, EIGH_KERNEL)}
     if reset:
-        linalg.LAUNCHES.update(dict.fromkeys(linalg.LAUNCHES, 0))
+        reset_launches(counts)
     return counts
 
 
@@ -2913,7 +2919,7 @@ def hold_decomposition(kind, A, full_matrices, name):
 
     cases = linalg_cases()
     kernel = SVD_KERNEL if kind == "svd" else EIGH_KERNEL
-    before = linalg.LAUNCHES[kernel]
+    before = build.LAUNCHES[kernel]
     if kind == "svd":
         got = sync_free(linalg.svd_small, A, full_matrices)
         ref = linalg.svd_small_plain(A, full_matrices)
@@ -2922,8 +2928,8 @@ def hold_decomposition(kind, A, full_matrices, name):
         got = sync_free(linalg.eigh_small, A)
         ref = linalg.eigh_small_plain(A)
         vals, ref_vals = got[0], ref[0]
-    check(linalg.LAUNCHES[kernel] == before + 1,
-          f"{name}: {linalg.LAUNCHES[kernel] - before} launches, not 1")
+    check(build.LAUNCHES[kernel] == before + 1,
+          f"{name}: {build.LAUNCHES[kernel] - before} launches, not 1")
     try:
         hold = cases.check_svd if kind == "svd" else cases.check_eigh
         rep = hold(_np(A), *map(_np, got), [_np(r) for r in ref], name)
@@ -3398,7 +3404,6 @@ def cli_kitti(tmp, dev, scale, n_frames):
     scale."""
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "kitti00-02_stereo.yaml",
@@ -3422,7 +3427,7 @@ def cli_kitti(tmp, dev, scale, n_frames):
         "--dataset", "kitti_stereo", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
         "--device", dev.type])
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     rec = dict(config=("configs/kitti00-02_stereo.yaml" if scale == 1.0
                        else f"kitti00-02_stereo.yaml at scale {scale}"),
                image=f"{cfg.camera.width}x{cfg.camera.height}",
@@ -3460,7 +3465,6 @@ def cli_tum(tmp, dev, scale, n_frames):
     `run_slam --dataset tum_rgbd --viz-every 10`."""
     from orbslam_birdview_tpu_torch.api.config import SlamConfig
     from orbslam_birdview_tpu_torch.cli import eval_traj, run_slam
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.utils import imageio
 
     cfg_path = cli_config(ROOT / "configs" / "tum1_rgbd.yaml",
@@ -3490,7 +3494,7 @@ def cli_tum(tmp, dev, scale, n_frames):
         "--dataset", "tum_rgbd", "--root", str(root), "--config", cfg_path,
         "--out", str(out), "--viz-every", "10", "--viz-dir", str(viz_dir),
         "--device", dev.type])
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     rec = dict(config=("configs/tum1_rgbd.yaml (distortion zeroed)"
                        if scale == 1.0 else f"tum1_rgbd.yaml at {scale}"),
                image=f"{cfg.camera.width}x{cfg.camera.height}",
@@ -3529,8 +3533,6 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
     mask/; a global front mask over one band): every `FrameRecord` equal
     to the render bit for bit, then `run_slam --dataset fisheye_bird`."""
     from orbslam_birdview_tpu_torch.cli import datasets, run_slam
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
     from orbslam_birdview_tpu_torch.utils import imageio
 
     root = tmp / "fisheye"
@@ -3585,7 +3587,7 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
         "--dataset", "fisheye_bird", "--root", str(root), "--config",
         cfg_path, "--out", str(out), "--out-kf", str(out_kf),
         "--device", dev.type])
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     n = len(frames)
     check(res["frames"] == n, f"cli fisheye: read {res['frames']} of {n}")
     # 2 a bird frame fed, whatever its path (a reset restarts the
@@ -3605,7 +3607,7 @@ def cli_fisheye(tmp, dev, seq, frames, mask, cfg_path):
                      "hard-coded camera-to-base extrinsics, which the "
                      "synthetic drive's forward camera does not match",
                 patch_gather_launches=launches, launches_per_frame=2,
-                pose_lm_launches=pose_opt.LAUNCHES,
+                pose_lm_launches=build.LAUNCHES[POSE_LM],
                 orb_detect_launches=detect_launches(launches, "cli fisheye"))
 
 
@@ -3613,13 +3615,11 @@ def cli_synthetic(dev, n_frames):
     """`run_synthetic --mode bird` (640×480, 1000 features, the sequence's
     own extrinsics): the printed metric ATE under MAX_CLI_ATE_M."""
     from orbslam_birdview_tpu_torch.cli import run_synthetic
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     reset_launches()
     res, tail, secs = run_cli(run_synthetic.main, [
         "--mode", "bird", "--frames", str(n_frames), "--device", dev.type])
-    launches = patch_kernel.LAUNCHES
+    launches = build.LAUNCHES[GATHER]
     want = 2 * n_frames if dev.type == "cuda" else 0
     check(launches == want, f"cli run_synthetic: patch kernel launched "
           f"{launches} times, expected {want}")
@@ -3629,7 +3629,7 @@ def cli_synthetic(dev, n_frames):
           f"cli run_synthetic: METRIC ATE {res['ate_m']} m")
     return dict(res, run_s=secs, printed=tail,
                 patch_gather_launches=launches, launches_per_frame=2,
-                pose_lm_launches=pose_opt.LAUNCHES,
+                pose_lm_launches=build.LAUNCHES[POSE_LM],
                 orb_detect_launches=detect_launches(launches,
                                                     "cli run_synthetic"))
 
@@ -3897,17 +3897,15 @@ def parallel_circle(dev, mesh, drive, one_device):
     `System(cfg, device, mesh)` on the 4-shard mesh: the essential graph
     and the full-map BA take the sharded branches."""
     from orbslam_birdview_tpu_torch.api.system import System
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
-    from orbslam_birdview_tpu_torch.graph import pose_opt
 
     cfg = slam_config(drive)
     system = System(cfg, device=dev, mesh=mesh)
     reset_launches()
     rec = run_circle(system, drive["frames"], drive["mask"], drive["seq"],
                      1 / 25.0)
-    rec["patch_gather_launches"] = patch_kernel.LAUNCHES
-    rec["pose_lm_launches"] = pose_opt.LAUNCHES
-    rec["orb_detect_launches"] = detect_launches(patch_kernel.LAUNCHES,
+    rec["patch_gather_launches"] = build.LAUNCHES[GATHER]
+    rec["pose_lm_launches"] = build.LAUNCHES[POSE_LM]
+    rec["orb_detect_launches"] = detect_launches(build.LAUNCHES[GATHER],
                                                  "parallel circle")
     rec["shards"] = mesh.n_shards
     check_launches(rec["patch_gather_launches"], len(drive["frames"]), dev)
@@ -4051,7 +4049,6 @@ def parallel_phase(dev, loop_drive, one_device_circle):
     through System on the 4-shard mesh, (c) the cross-process reduction,
     (d) the JPEG fixtures. Shards on one card run one after another: these
     are not multi-GPU speeds."""
-    from orbslam_birdview_tpu_torch.frontend import patch_kernel
     from orbslam_birdview_tpu_torch.parallel import dryrun, runtime
 
     t_phase = time.perf_counter()
@@ -4061,11 +4058,11 @@ def parallel_phase(dev, loop_drive, one_device_circle):
     t0 = time.perf_counter()
     rec["dryrun"] = dryrun.dryrun_multichip(PARALLEL_SHARDS, mesh=mesh)
     rec["dryrun"]["wall_s"] = time.perf_counter() - t0
-    rec["dryrun"]["patch_gather_launches"] = patch_kernel.LAUNCHES
-    check(patch_kernel.LAUNCHES == PARALLEL_SHARDS,
-          f"parallel dry run: {patch_kernel.LAUNCHES} gather launches")
+    rec["dryrun"]["patch_gather_launches"] = build.LAUNCHES[GATHER]
+    check(build.LAUNCHES[GATHER] == PARALLEL_SHARDS,
+          f"parallel dry run: {build.LAUNCHES[GATHER]} gather launches")
     rec["dryrun"]["orb_detect_launches"] = detect_launches(
-        patch_kernel.LAUNCHES, "parallel dry run")
+        build.LAUNCHES[GATHER], "parallel dry run")
     t0 = time.perf_counter()
     rec["gba"], rec["pose_graph"] = parallel_solvers(dev, mesh)
     rec["solvers_s"] = time.perf_counter() - t0
@@ -4093,7 +4090,6 @@ def main() -> int:
     from orbslam_birdview_tpu_torch.core import linalg
     from orbslam_birdview_tpu_torch.frontend import detect_kernel, patch_kernel
     from orbslam_birdview_tpu_torch.graph import pose_opt
-    from orbslam_birdview_tpu_torch.utils import build
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -4102,10 +4098,11 @@ def main() -> int:
     t0 = time.perf_counter()
     # csrc/patch_gather.cu, small_linalg.cu, pose_lm.cu and orb_detect.cu,
     # one nvcc each, together
-    build.build_libraries([patch_kernel.LIBRARY, linalg.LIBRARY,
-                           pose_opt.LIBRARY, detect_kernel.LIBRARY])
-    patch_kernel._kernel(), linalg._kernels(), pose_opt._kernel()
-    detect_kernel._kernel()
+    libraries = [patch_kernel.LIBRARY, linalg.LIBRARY, pose_opt.LIBRARY,
+                 detect_kernel.LIBRARY]
+    build.build_libraries(libraries)
+    for library in libraries:
+        build.load_library(*library)
     build_s = time.perf_counter() - t0
     drive = render_drive(SYSTEM_FRAMES)
     seeded_drive = dict(drive, frames=drive["frames"][:N_FRAMES + 1])

@@ -3,9 +3,11 @@
 Module names mirror the JAX package one for one, so every module here has
 exactly one counterpart to be tested against. The port imports nothing of
 the JAX package. Its hand-written kernels are the patch gather
-(`frontend/patch_kernel.py`, `csrc/patch_gather.cu`) and the solvers'
-small SVD and eigh (`core/linalg.py`, `csrc/small_linalg.cu`), built by
-nvcc at first use.
+(`frontend/patch_kernel.py`, `csrc/patch_gather.cu`), the ORB detection
+(`frontend/detect_kernel.py`, `csrc/orb_detect.cu`), the pose LM
+(`graph/pose_opt.py`, `csrc/pose_lm.cu`) and the solvers' small SVD and
+eigh (`core/linalg.py`, `csrc/small_linalg.cu`), built by nvcc at first
+use and launched through `utils/build.launch`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 a GPU and without that argument they raise (`resolve_device`).

@@ -1,7 +1,9 @@
 """Configuration for the SLAM system: one explicit place for the YAML
 values ORB-SLAM2 parses in its tracker and viewer, and for the vehicle/BEV
 calibration the fork hardcodes. Field for field the JAX package's
-`api/config.py`, on the port's camera and ORB types.
+`api/config.py`, on the port's camera and ORB types, less that package's
+switches of the tracker's and the mapper's schedule: the port runs the one
+schedule their defaults select, with `fused_max_lag` its one value.
 """
 from __future__ import annotations
 
@@ -40,32 +42,18 @@ class TrackingConfig:
     local_map_max_kfs: int = 80
     # fused one-dispatch tracking (pipeline/fused_track.py): device-side
     # motion-model + local-map tracking with a single readback per frame
-    fused_tracking: bool = True
     fused_point_cap: int = 6144
     fused_bird_cap: int = 2048   # BEV ground-landmark bundle capacity
-    # lag-N pipelining: retire in-flight frames as their summary fetches
-    # land, blocking only past `fused_max_lag` frames in flight.
-    # fused_lag1=False forces synchronous finalization of every frame.
-    fused_lag1: bool = True
-    # Max in-flight (unretired) frames. This bounds the SEMANTIC lag of
-    # every decision made at retirement (mints, fallbacks, LOST) — when
-    # input outruns the link the queue fills to this depth and stays
-    # there, so each extra slot directly inflates decision latency. At
-    # real camera rates the queue drains between frames and the bound
-    # never engages.
+    # Max in-flight (unretired) frames, and the frames per batched summary
+    # transfer. This bounds the SEMANTIC lag of every decision made at
+    # retirement (mints, fallbacks, LOST) — when input outruns the link the
+    # queue fills to this depth and stays there, so each extra slot
+    # directly inflates decision latency. At real camera rates the queue
+    # drains between frames and the bound never engages. A summary block
+    # seals after this many rows (amortizing the fetch latency over the
+    # block); unhealthy tracking seals per-frame so LOST detection never
+    # lags.
     fused_max_lag: int = 4
-    # Frames per batched summary transfer. Blocks seal after exactly this
-    # many rows (amortizing the fetch latency over the block); unhealthy
-    # tracking seals per-frame so LOST detection never lags. Must be
-    # <= fused_max_lag — a block larger than the queue bound would be
-    # sealed early by forced retirement anyway.
-    summary_batch: int = 4
-    # deterministic scheduling: no retirement lag, no deferred keyframe
-    # mints, mapping stages drained per keyframe. The overlapped pipeline's
-    # decisions otherwise depend on wall-clock fetch timing — fine in
-    # production, but load-sensitive tests (shared CI cores) need
-    # reproducible dynamics.
-    synchronous: bool = False
     # birdview
     bird_info_scale_pose: float = 1.0
     bird_info_scale_ba: float = 1.0
@@ -88,7 +76,6 @@ class MappingConfig:
     local_ba_point_cap: int = 8192
     local_ba_edge_cap: int = 32768
     fuse_point_cap: int = 4096      # landmark bucket for the batched fuse op
-    async_local_ba: bool = True     # overlap local BA with tracking frames
 
 
 @dataclass

@@ -35,12 +35,11 @@ import math
 
 import torch
 
+from ..utils import build
+
 MAX_N = 12      # columns
 MAX_M = 16      # rows for which the SVD gives U; taller ones give S and Vh
 MAX_TALL_M = 64  # rows the SVD takes without U
-
-# launches of each CUDA kernel, counted where it is launched
-LAUNCHES = {"jacobi_svd_f32": 0, "jacobi_eigh_f32": 0}
 
 
 def solve_psd_small(A, b, eps: float = 1e-12):
@@ -107,27 +106,13 @@ def eigh_small_plain(S):
 
 # the library's name, sources and headers in csrc/, for utils/build.py
 LIBRARY = ("small_linalg", ["small_linalg.cu"], ["small_linalg.cuh"])
-_fns = None
-
-
-def _kernels():
-    """The C entry points of csrc/small_linalg.cu, built at first use: the
-    two kernels and an empty kernel (a launch floor for timing)."""
-    global _fns
-    if _fns is None:
-        from ..utils import build
-
-        lib = build.load_library(*LIBRARY)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        svd = lib.jacobi_svd_f32
-        svd.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
-        eigh = lib.jacobi_eigh_f32
-        eigh.argtypes = [ptr, i32, i32, ptr, ptr, ptr]
-        empty = lib.small_linalg_empty
-        empty.argtypes = [ptr]
-        svd.restype = eigh.restype = empty.restype = ctypes.c_int
-        _fns = svd, eigh, empty
-    return _fns
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+SVD = build.EntryPoint(LIBRARY, "jacobi_svd_f32",
+                       (_PTR, _I32, _I32, _I32, _PTR, _PTR, _PTR))
+EIGH = build.EntryPoint(LIBRARY, "jacobi_eigh_f32",
+                        (_PTR, _I32, _I32, _PTR, _PTR))
+# an empty kernel of one block: the launch floor for timing
+EMPTY = build.EntryPoint(LIBRARY, "small_linalg_empty", ())
 
 
 def _check(name, X):
@@ -146,15 +131,6 @@ def _check(name, X):
         raise ValueError(f"{name}: unsupported device {X.device}")
 
 
-def _launch(kernel, args, dev):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = kernel(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel.__name__} kernel launch failed: CUDA "
-                           f"error {err}")
-
-
 def svd_launch(A):
     """Launch `jacobi_svd_f32` on the contiguous CUDA batch A (B,m,n), B ≥ 1:
     U (B,m,m) (None for m > MAX_M), S (B,min(m,n)) descending, Vh
@@ -165,10 +141,8 @@ def svd_launch(A):
     U = (torch.empty((B, m, m), dtype=A.dtype, device=dev)
          if m <= MAX_M else None)
     Vh = torch.empty((B, n, n), dtype=A.dtype, device=dev)
-    _launch(_kernels()[0], (A.data_ptr(), B, m, n, S.data_ptr(),
-                            None if U is None else U.data_ptr(),
-                            Vh.data_ptr()), dev)
-    LAUNCHES["jacobi_svd_f32"] += 1
+    build.launch(SVD, dev, A.data_ptr(), B, m, n, S.data_ptr(),
+                 None if U is None else U.data_ptr(), Vh.data_ptr())
     return U, S, Vh
 
 
@@ -180,9 +154,7 @@ def eigh_launch(S):
     dev = S.device
     w = torch.empty((B, n), dtype=S.dtype, device=dev)
     V = torch.empty((B, n, n), dtype=S.dtype, device=dev)
-    _launch(_kernels()[1], (S.data_ptr(), B, n, w.data_ptr(), V.data_ptr()),
-            dev)
-    LAUNCHES["jacobi_eigh_f32"] += 1
+    build.launch(EIGH, dev, S.data_ptr(), B, n, w.data_ptr(), V.data_ptr())
     return w, V
 
 

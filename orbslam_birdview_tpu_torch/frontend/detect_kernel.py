@@ -21,14 +21,12 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import build
+
 MAX_LEVELS = 16
 MAX_CELL = 32
 MAX_PER_CELL = 8
 MAX_CANDIDATES = 16384   # a level's cells × per_cell: the pick's sort
-
-# launches (C calls, one an extraction) of the CUDA kernels, counted where
-# they are launched
-LAUNCHES = 0
 
 
 class _Level(ctypes.Structure):
@@ -53,21 +51,9 @@ class _Args(ctypes.Structure):
 
 # the library's name, sources and headers in csrc/, for utils/build.py
 LIBRARY = ("orb_detect", ["orb_detect.cu"], ["orb_detect.cuh"])
-_fn = None
-
-
-def _kernel():
-    """The C entry point of csrc/orb_detect.cu, built at first use."""
-    global _fn
-    if _fn is None:
-        from ..utils import build
-
-        lib = build.load_library(*LIBRARY)
-        fn = lib.orb_detect_levels_f32
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+# one C call launches every level's kernel and the pick
+DETECT = build.EntryPoint(LIBRARY, "orb_detect_levels_f32",
+                          (ctypes.POINTER(_Args),))
 
 
 class Plan:
@@ -187,7 +173,6 @@ def detect(img, mask, plan: Plan):
     plan's CUDA device -> (padded levels, ys, xs, xy, response, octave,
     valid) as `orb.detect_levels_plain` returns them. One C call launches
     every level's kernel and the pick."""
-    global LAUNCHES
     dev = plan.device
     if dev.type != "cuda":
         raise ValueError(f"detect: unsupported device {dev}")
@@ -205,17 +190,7 @@ def detect(img, mask, plan: Plan):
     octave = torch.empty(cap, dtype=torch.int32, device=dev)
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
     args = plan.args(img, mask, padded, cand, yx, xy, response, octave, valid)
-    fn = _kernel()
-    # an op-scoped profiler range around the launch: the profiler links a
-    # launch made outside every torch op only to such a range
-    with torch.cuda.device(dev), \
-            torch._C._profiler._RecordFunctionFast("orb_detect_levels_f32"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"orb_detect kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
+    build.launch(DETECT, dev, ctypes.byref(args))
     levels = [p.view(shape) for p, shape in zip(
         padded.split([h * w for h, w in plan.padded_shapes]),
         plan.padded_shapes)]

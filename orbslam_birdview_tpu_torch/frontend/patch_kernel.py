@@ -29,11 +29,10 @@ import ctypes
 
 import torch
 
+from ..utils import build
+
 MAX_SIZE = 64
 MAX_LEVELS = 16
-
-# launches of the CUDA kernel, counted where it is launched
-LAUNCHES = 0
 
 
 class _Level(ctypes.Structure):
@@ -51,21 +50,8 @@ class _LevelTable(ctypes.Structure):
 
 # the library's name, sources and headers in csrc/, for utils/build.py
 LIBRARY = ("patch_gather", ["patch_gather.cu"], [])
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from ..utils import build
-
-        lib = build.load_library(*LIBRARY)
-        fn = lib.patch_gather_levels_f32
-        fn.argtypes = [ctypes.POINTER(_LevelTable), ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+GATHER = build.EntryPoint(LIBRARY, "patch_gather_levels_f32", (
+    ctypes.POINTER(_LevelTable), ctypes.c_int, ctypes.c_void_p))
 
 
 def clamp_starts(padded, ys, xs, size: int):
@@ -130,7 +116,6 @@ def gather_patches_levels(padded_levels, ys_levels, xs_levels, size: int):
     all levels; CPU tensors take the plain version. A size that is not a
     multiple of 4 runs the kernel's scalar path (its float4 stores need
     every patch to start on a 16-byte boundary)."""
-    global LAUNCHES
     n = len(padded_levels)
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"gather_patches: {n} levels, the kernel takes "
@@ -150,13 +135,7 @@ def gather_patches_levels(padded_levels, ys_levels, xs_levels, size: int):
                       device=dev)
     if table.k_total == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(table), size, out.data_ptr(), stream)
-    LAUNCHES += 1
-    if err != 0:
-        raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {err}")
+    build.launch(GATHER, dev, ctypes.byref(table), size, out.data_ptr())
     return out
 
 

@@ -23,13 +23,11 @@ from typing import NamedTuple
 import torch
 
 from ..core import lie, linalg, robust
+from ..utils import build
 from . import residuals
 
 CHI2_MONO = 5.991
 CHI2_BIRD = 7.815
-
-# launches of the CUDA kernel, counted where it is launched
-LAUNCHES = 0
 
 
 class PoseOptResult(NamedTuple):
@@ -185,21 +183,7 @@ class _Args(ctypes.Structure):
 
 # the library's name, sources and headers in csrc/, for utils/build.py
 LIBRARY = ("pose_lm", ["pose_lm.cu"], [])
-_fn = None
-
-
-def _kernel():
-    """The C entry point of csrc/pose_lm.cu, built at first use."""
-    global _fn
-    if _fn is None:
-        from ..utils import build
-
-        lib = build.load_library(*LIBRARY)
-        fn = lib.pose_lm_f32
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+POSE_LM = build.EntryPoint(LIBRARY, "pose_lm_f32", (ctypes.POINTER(_Args),))
 
 
 # the most edges (mono + bird) a call takes: 8 CTAs of 7,680 edges in
@@ -236,7 +220,6 @@ def optimize_pose(R0, t0, Xw, obs_uv, info, valid, fx: float, fy: float,
     CPU tensors run `optimize_pose_plain`. CUDA tensors launch the kernel
     once: float32 contiguous inputs on R0's device, valid masks of bool,
     at most MAX_EDGES edges; anything else raises."""
-    global LAUNCHES
     dev = R0.device
     if dev.type == "cpu":
         return optimize_pose_plain(R0, t0, Xw, obs_uv, info, valid, fx, fy,
@@ -280,15 +263,5 @@ def optimize_pose(R0, t0, Xw, obs_uv, info, valid, fx: float, fy: float,
     args = _Args(*map(ptr, (R0, t0, Xw, obs_uv, info, valid, *bird, R, t,
                             inl, inl_b, n_inl, chi2)),
                  fx, fy, cx, cy, n, nb, rounds, iters_per_round)
-    fn = _kernel()
-    # an op-scoped profiler range around the launch: the profiler links a
-    # launch made outside every torch op only to such a range, not to a
-    # user range such as record_function
-    with torch.cuda.device(dev), \
-            torch._C._profiler._RecordFunctionFast("pose_lm_f32"):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"pose_lm kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    build.launch(POSE_LM, dev, ctypes.byref(args))
     return PoseOptResult(R, t, inl, inl_b, n_inl, chi2)

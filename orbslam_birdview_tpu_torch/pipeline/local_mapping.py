@@ -230,15 +230,7 @@ class LocalMapper:
     # keyframe event itself pays for host bookkeeping and one dispatch.
     # ------------------------------------------------------------------
     def process_keyframe(self, kf: int):
-        if self.cfg.tracking.synchronous:
-            # deterministic/debug: run the whole keyframe path blocking
-            self.drain_kf_stages()
-            self.finalize_ba(block=True)
-            self._kf_queue.append(kf)
-            self.drain_kf_stages()
-            self.finalize_ba(block=True)
-            return
-        # overlapped: ENQUEUE and return; stages of consecutive keyframes
+        # ENQUEUE and return; stages of consecutive keyframes
         # coexist the way the reference's mapping thread consumes its queue
         self._kf_queue.append(kf)
         if self._kf_stage is None:
@@ -851,7 +843,7 @@ class LocalMapper:
             mp_ids=mp_ids, bmp_ids=bmp_ids, n_mp=n_mp, n_bmp=n_bmp,
             n_mono=n_mono, epoch=store.correction_epoch)
         self._ba_tick = self._frame_tick
-        if not (async_dispatch and cfg.async_local_ba):
+        if not async_dispatch:
             self.finalize_ba(block=True)
 
     def finalize_ba(self, block: bool = False,

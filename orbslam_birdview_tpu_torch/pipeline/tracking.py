@@ -23,10 +23,10 @@ A host-side state machine driving fixed-shape device ops:
   keyframe to `LocalMapper.process_keyframe`.
 
 Every overlapped result lands at a FIXED frame offset from its dispatch
-(`KF_MINT_LAG`, `ACC_LAG`, `fused_max_lag`, `summary_batch`, the mapper's
-stage and BA lags), waiting for its transfer if need be, never as soon as
-it happens to be ready: the map and the trajectory are a function of the
-frame index alone.
+(`KF_MINT_LAG`, `ACC_LAG`, `fused_max_lag`, the mapper's stage and BA
+lags), waiting for its transfer if need be, never as soon as it happens to
+be ready: the map and the trajectory are a function of the frame index
+alone.
 
 Stereo and RGB-D frames carry a per-keypoint depth and right-image u
 (`kp_depth`, `kp_ur`): on the fused path they are computed in the step and
@@ -68,7 +68,7 @@ class _SummaryBlock:
     """Batches several frames' 16-float summaries into ONE device-to-host
     transfer: the rows are stacked on the device when the block is sealed,
     and the fetch of the stack starts then. The block seals after
-    `summary_batch` rows, or at once (one row) whenever tracking is not
+    `fused_max_lag` rows, or at once (one row) whenever tracking is not
     demonstrably healthy (see `_process_fused`)."""
 
     def __init__(self, stats: Optional[list] = None, timer=None):
@@ -270,7 +270,7 @@ class Tracker:
     def process(self, img, timestamp, bird_img=None, bird_mask=None,
                 depth_img=None, right_img=None) -> FrameData:
         with self.timer.stage("proc.landed_acc"):
-            self._apply_landed_acc(block=self.cfg.tracking.synchronous)
+            self._apply_landed_acc()
         if (self._kf_pending is not None
                 and self.frame_id - self._kf_pending[2] >= KF_MINT_LAG):
             with self.timer.stage("proc.kf_complete"):
@@ -290,9 +290,8 @@ class Tracker:
                    or (bird_img is not None and sensor == "mono_bird")
                    or (depth_img is not None and sensor == "rgbd")
                    or (right_img is not None and sensor == "stereo"))
-        fused_ok = (self.cfg.tracking.fused_tracking and self.state == OK
-                    and self.velocity is not None and not self.only_tracking
-                    and mode_ok)
+        fused_ok = (self.state == OK and self.velocity is not None
+                    and not self.only_tracking and mode_ok)
         if fused_ok:
             if (self._lm_bundle is None
                     or self._lm_ref_kf != self.ref_kf
@@ -544,7 +543,7 @@ class Tracker:
         self.timer.mark("dispatched", self.timer.frame)
         self._acc = (out.vis_acc, out.found_acc)
         # the frame's summary rides home in a BATCHED block fetch: exactly
-        # `summary_batch` rows per block, sealed at once (one row) whenever
+        # `fused_max_lag` rows per block, sealed at once (one row) whenever
         # tracking is not demonstrably healthy, so LOST detection and the
         # keyframe policy never lag a struggling tracker
         if self._sum_block is None or self._sum_block.fetch is not None:
@@ -552,11 +551,9 @@ class Tracker:
             self._sum_block = _SummaryBlock(stats=self.batch_stats,
                                             timer=self.timer)
         summary = self._sum_block.append(out.summary)
-        healthy = (self.state == OK and not cfgt.synchronous
-                   and cfgt.fused_lag1
-                   and self._n_last_inliers >= 90)
+        healthy = self.state == OK and self._n_last_inliers >= 90
         if (not healthy
-                or len(self._sum_block.rows) >= cfgt.summary_batch):
+                or len(self._sum_block.rows) >= cfgt.fused_max_lag):
             self._sum_block.seal()
             self._sum_block = None
         fd = FrameData(frame_id=self.frame_id, call=self.timer.frame,
@@ -588,11 +585,9 @@ class Tracker:
         # queue exceeds `fused_max_lag`, at a fixed frame offset from its
         # dispatch
         disruption = False
-        max_lag = (cfgt.fused_max_lag
-                   if cfgt.fused_lag1 and not cfgt.synchronous else 0)
-        if len(self._pending_q) > max_lag:
+        if len(self._pending_q) > cfgt.fused_max_lag:
             with self.timer.stage("fused.retire"):
-                while len(self._pending_q) > max_lag:
+                while len(self._pending_q) > cfgt.fused_max_lag:
                     disruption |= self._finalize_pending()
         if disruption:
             # frames still in flight were dispatched against the old state;
@@ -669,9 +664,7 @@ class Tracker:
             if (not self.only_tracking
                     and self._kf_pending is None
                     and self._need_new_keyframe(fd)):
-                if (fd._kp_slot_dev is None
-                        or self._starving(fd)
-                        or cfgt.synchronous):
+                if fd._kp_slot_dev is None or self._starving(fd):
                     # starving: every frame of mint latency costs map
                     # coverage: create NOW (blocking fetch) so the new
                     # keyframe's triangulation starts this frame
@@ -1556,9 +1549,8 @@ class Tracker:
                     self.mapper.drain_kf_stages()
             fd.R = store.kf_R[kf].copy()
             fd.t = store.kf_t[kf].copy()
-        if self.cfg.tracking.fused_tracking:
-            with self.timer.stage("kf.bundle_refresh"):
-                self._refresh_local_map()
+        with self.timer.stage("kf.bundle_refresh"):
+            self._refresh_local_map()
 
     def _starving(self, fd: FrameData) -> bool:
         """Tracking holds barely enough map attachment: prioritize map

@@ -1,5 +1,6 @@
 """Build the port's native sources and load them with ctypes: CUDA sources
-(`.cu`) with nvcc, host C++ sources (`.cpp`) with the host compiler.
+(`.cu`) with nvcc, host C++ sources (`.cpp`) with the host compiler; and
+launch the hand-written kernels through their C entry points (`launch`).
 
 Each library is compiled at first use into `build/torch_kernels/` at the
 root of the checkout (listed in .gitignore; $ORBSLAM_TORCH_BUILD_DIR names
@@ -18,7 +19,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
@@ -116,3 +121,47 @@ def load_library(name: str, sources: list[str],
             path, = build_libraries([(name, sources, headers)])
             lib = LOADED[name] = ctypes.CDLL(str(path))
         return lib
+
+
+class EntryPoint(NamedTuple):
+    """A kernel's C entry point: the `library` it is in, as `load_library`
+    takes it (name, sources, headers), its `name`, and the ctypes types of
+    its arguments but the last, which is the CUDA stream. It returns a CUDA
+    error code, 0 on success."""
+    library: tuple
+    name: str
+    argtypes: tuple
+
+
+# entry point's name -> its launches, counted by `launch`; read by tests
+LAUNCHES: Counter = Counter()
+_functions: dict = {}
+
+
+def _function(entry: EntryPoint):
+    """`entry`'s ctypes function: its library built and loaded, and its
+    argument and return types set, at the first call."""
+    fn = _functions.get(entry.name)
+    if fn is None:
+        fn = getattr(load_library(*entry.library), entry.name)
+        fn.argtypes = [*entry.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _functions[entry.name] = fn
+    return fn
+
+
+def launch(entry: EntryPoint, device, *args) -> None:
+    """Call `entry` with `args` and the current stream of the CUDA
+    `device`, under the device's guard and inside an op-scoped profiler
+    range named after the entry point: the profiler links a launch made
+    outside every torch op only to such a range, not to a user range such
+    as `record_function`. Raises RuntimeError on a nonzero return, and
+    counts the launch in LAUNCHES."""
+    fn = _function(entry)
+    with torch.cuda.device(device), \
+            torch._C._profiler._RecordFunctionFast(entry.name):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry.name} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[entry.name] += 1

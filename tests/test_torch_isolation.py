@@ -93,10 +93,9 @@ def test_imports_without_jax_reference_or_cv2(tmp_path):
         for name in {MODULES!r}:
             importlib.import_module(name)
         from orbslam_birdview_tpu_torch.utils import build
-        from orbslam_birdview_tpu_torch.frontend import patch_kernel
         assert build.LOADED == {{}}, build.LOADED
         assert str(build.BUILD_DIR).startswith({str(tmp_path)!r})
-        assert patch_kernel.LAUNCHES == 0
+        assert not build.LAUNCHES, build.LAUNCHES
         assert not any(m.split(".")[0] in ("jax", "orbslam_birdview_tpu",
                                            "cv2", "matplotlib")
                        for m, v in sys.modules.items() if v is not None)

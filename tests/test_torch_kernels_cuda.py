@@ -11,13 +11,19 @@ import pytest
 import torch
 
 from orbslam_birdview_tpu_torch.core import linalg
+from orbslam_birdview_tpu_torch.frontend import detect_kernel
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
 from orbslam_birdview_tpu_torch.graph import pose_opt as tpo
+from orbslam_birdview_tpu_torch.utils import build
 
 import orb_detect_cases as odc
 import small_linalg_cases as sl
 
 S = 48
+
+
+def _launches(entry):
+    return build.LAUNCHES[entry.name]
 
 
 @pytest.fixture()
@@ -39,10 +45,10 @@ def test_patch_gather_matches_plain(cuda, shape, k):
                           .astype(np.int32)).to(cuda)
     xs = torch.from_numpy(rng.integers(-3, shape[1] - S + 6, k)
                           .astype(np.int32)).to(cuda)
-    before = tpk.LAUNCHES
+    before = _launches(tpk.GATHER)
     out = tpk.gather_patches(img, ys, xs, S)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == before + 1
+    assert _launches(tpk.GATHER) == before + 1
     assert torch.equal(out, tpk.gather_patches_plain(img, ys, xs, S))
 
 
@@ -87,10 +93,10 @@ def test_patch_gather_levels_matches_plain(cuda, n_levels, size):
     """One launch for all levels, float4 path (size % 4 == 0) and scalar
     path, against the per-level plain gathers concatenated."""
     imgs, ys_l, xs_l = _levels(cuda, n_levels, size)
-    before = tpk.LAUNCHES
+    before = _launches(tpk.GATHER)
     out = tpk.gather_patches_levels(imgs, ys_l, xs_l, size)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == before + 1
+    assert _launches(tpk.GATHER) == before + 1
     assert out.shape == (sum(k for _, _, k in LEVELS[:n_levels]), size, size)
     assert torch.equal(out, tpk.gather_patches_levels_plain(imgs, ys_l, xs_l,
                                                             size))
@@ -107,7 +113,7 @@ def test_patch_gather_levels_rejects_what_the_kernel_does_not_take(cuda):
         args[which][1] = value
         return args
 
-    before = tpk.LAUNCHES
+    before = _launches(tpk.GATHER)
     for args, size in ((swap(1, idx.long()), S), (swap(0, img.double()), S),
                        (swap(0, img.t()), S), (swap(0, img[:40]), S),
                        (swap(2, idx[:2]), S), (swap(1, idx.cpu()), S),
@@ -116,11 +122,11 @@ def test_patch_gather_levels_rejects_what_the_kernel_does_not_take(cuda):
                        (([img] * 2, [idx] * 2, [idx] * 3), S)):
         with pytest.raises(ValueError):
             tpk.gather_patches_levels(*args, size)
-    assert tpk.LAUNCHES == before
+    assert _launches(tpk.GATHER) == before
     # no patch at all: an empty result and no launch
     none = idx[:0]
     out = tpk.gather_patches_levels([img], [none], [none], S)
-    assert out.shape == (0, S, S) and tpk.LAUNCHES == before
+    assert out.shape == (0, S, S) and _launches(tpk.GATHER) == before
 
 
 @pytest.mark.cuda
@@ -191,9 +197,9 @@ def test_depth_modes_small_on_the_card(cuda):
 
     rec = smoke.small_stereo_reference(cuda)
     assert rec["max_ur_diff_px"] <= 1e-4 and rec["matches"] > 150
-    before = tpk.LAUNCHES
+    before = _launches(tpk.GATHER)
     rec = smoke.e2e_stereo_wall_sequence(cuda)
-    launches = tpk.LAUNCHES - before
+    launches = _launches(tpk.GATHER) - before
     assert rec["tracked"] >= 14 and rec["ate_m"] < 0.03
     assert 2 * 18 <= launches <= 3 * 18
 
@@ -222,9 +228,9 @@ def test_jacobi_svd_matches_plain(cuda, site):
     every site's shape: one launch, no sync, the invariants and tolerances
     of small_linalg_cases, NaN exactly in the non-finite entries."""
     A = torch.from_numpy(sl.make_input(site)).to(cuda)
-    before = linalg.LAUNCHES["jacobi_svd_f32"]
+    before = _launches(linalg.SVD)
     got = _sync_free(linalg.svd_small, A, site.full_matrices)
-    assert linalg.LAUNCHES["jacobi_svd_f32"] == before + 1
+    assert _launches(linalg.SVD) == before + 1
     ref = linalg.svd_small_plain(A, site.full_matrices)
     sl.check_svd(_np(A), *map(_np, got), [_np(r) for r in ref], site.name)
 
@@ -234,27 +240,27 @@ def test_jacobi_svd_matches_plain(cuda, site):
                          ids=[s.name for s in sl.EIGH_SITES])
 def test_jacobi_eigh_matches_plain(cuda, site):
     A = torch.from_numpy(sl.make_input(site)).to(cuda)
-    before = linalg.LAUNCHES["jacobi_eigh_f32"]
+    before = _launches(linalg.EIGH)
     got = _sync_free(linalg.eigh_small, A)
-    assert linalg.LAUNCHES["jacobi_eigh_f32"] == before + 1
+    assert _launches(linalg.EIGH) == before + 1
     sl.check_eigh(_np(A), *map(_np, got),
                   [_np(r) for r in linalg.eigh_small_plain(A)], site.name)
 
 
 @pytest.mark.cuda
 def test_small_linalg_rejects_what_the_kernels_do_not_take(cuda):
-    before = dict(linalg.LAUNCHES)
+    before = build.LAUNCHES.copy()
     ok = torch.zeros((4, 3, 3), device=cuda)
     for fn in (linalg.svd_small, linalg.eigh_small):
         for bad in (ok.double(), ok.transpose(0, 1),
                     torch.zeros((2, 13, 13), device=cuda)):
             with pytest.raises(ValueError):
                 fn(bad)
-    assert linalg.LAUNCHES == before
+    assert build.LAUNCHES == before
     # an empty batch: empty results and no launch
     assert linalg.svd_small(ok[:0])[1].shape == (0, 3)
     assert linalg.eigh_small(ok[:0])[0].shape == (0, 3)
-    assert linalg.LAUNCHES == before
+    assert build.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -384,10 +390,10 @@ def test_pose_lm_matches_plain(cuda, name, n, nb, rounds, variant):
         args[2][3] = float("nan")
         args[5][3] = True
     args, bird = _on(cuda, args, bird)
-    before = tpo.LAUNCHES
+    before = _launches(tpo.POSE_LM)
     got = _sync_free(lambda: tpo.optimize_pose(*args, FX, FY, CX, CY,
                                                rounds=rounds, **bird))
-    assert tpo.LAUNCHES == before + 1
+    assert _launches(tpo.POSE_LM) == before + 1
     want = tpo.optimize_pose_plain(*args, FX, FY, CX, CY, rounds=rounds,
                                    **bird)
     for g, w in zip(got, want):
@@ -448,9 +454,9 @@ def test_pose_lm_launches_twice_a_fused_step(cuda, monkeypatch):
     step, launches = fused_track.track_step_mono, []
 
     def counted(*a, **kw):
-        before = tpo.LAUNCHES
+        before = _launches(tpo.POSE_LM)
         out = step(*a, **kw)
-        launches.append(tpo.LAUNCHES - before)
+        launches.append(_launches(tpo.POSE_LM) - before)
         return out
 
     monkeypatch.setattr(fused_track, "track_step_mono", counted)
@@ -470,17 +476,17 @@ def test_pose_lm_launches_twice_a_fused_step(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", odc.CASES)
 def test_orb_detect_matches_plain(cuda, name):
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+    from orbslam_birdview_tpu_torch.frontend import orb
 
     img, mask, cfg = odc.case(name)
     img = torch.from_numpy(img)
     mask = None if mask is None else torch.from_numpy(mask)
     ref = orb.detect_levels_plain(img, mask, cfg)
-    before = detect_kernel.LAUNCHES
+    before = _launches(detect_kernel.DETECT)
     out = orb.detect_levels(img.to(cuda),
                             None if mask is None else mask.to(cuda), cfg)
     torch.cuda.synchronize()
-    assert detect_kernel.LAUNCHES == before + 1
+    assert _launches(detect_kernel.DETECT) == before + 1
     for field in ("ys", "xs", "xy", "response", "octave", "valid"):
         r, o = getattr(ref, field), getattr(out, field).cpu()
         assert o.dtype == r.dtype and o.shape == r.shape, field
@@ -494,11 +500,11 @@ def test_orb_detect_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 def test_orb_detect_rejects_what_the_kernel_does_not_take(cuda):
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel, orb
+    from orbslam_birdview_tpu_torch.frontend import orb
 
     img = torch.full((200, 300), 50.0, device=cuda)
     cfg = orb.ORBConfig(n_features=500, n_levels=3)
-    before = detect_kernel.LAUNCHES
+    before = _launches(detect_kernel.DETECT)
     for bad in (lambda: orb.detect_levels(img.double(), None, cfg),
                 lambda: orb.detect_levels(img.t(), None, cfg),
                 lambda: orb.detect_levels(img, img.t(), cfg),
@@ -516,7 +522,7 @@ def test_orb_detect_rejects_what_the_kernel_does_not_take(cuda):
                                           cfg)):
         with pytest.raises(ValueError):
             bad()
-    assert detect_kernel.LAUNCHES == before
+    assert _launches(detect_kernel.DETECT) == before
 
 
 @pytest.mark.cuda
@@ -528,15 +534,14 @@ def test_orb_detect_launches_twice_a_fused_step(cuda, monkeypatch):
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as smoke
-    from orbslam_birdview_tpu_torch.frontend import detect_kernel
     from orbslam_birdview_tpu_torch.pipeline import fused_track
 
     step, launches = fused_track.track_step_mono, []
 
     def counted(*a, **kw):
-        before = detect_kernel.LAUNCHES
+        before = _launches(detect_kernel.DETECT)
         out = step(*a, **kw)
-        launches.append(detect_kernel.LAUNCHES - before)
+        launches.append(_launches(detect_kernel.DETECT) - before)
         return out
 
     monkeypatch.setattr(fused_track, "track_step_mono", counted)
@@ -546,3 +551,75 @@ def test_orb_detect_launches_twice_a_fused_step(cuda, monkeypatch):
         system.track_monocular_with_birdview(img, bev, drive["mask"], i / 25.0)
     system._flush()
     assert len(launches) >= 5 and set(launches) == {2}, launches
+
+
+# ---------------------------------------------------------------------------
+# every entry point launches through `build.launch`, whose profiler range,
+# named after the entry point, is what links its kernels to a caller's span
+# ---------------------------------------------------------------------------
+
+ENTRY_POINTS = [tpk.GATHER, detect_kernel.DETECT, tpo.POSE_LM, linalg.SVD,
+                linalg.EIGH, linalg.EMPTY]
+
+
+def _entry_point_call(entry, cuda):
+    """(a call that makes one C call of `entry`, the kernels that C call
+    launches)."""
+    from orbslam_birdview_tpu_torch.frontend import orb
+
+    if entry is tpk.GATHER:
+        imgs, ys_l, xs_l = _levels(cuda, 4)
+        return lambda: tpk.gather_patches_levels(imgs, ys_l, xs_l, S), 1
+    if entry is detect_kernel.DETECT:
+        img, _, cfg = odc.case("bird_front")
+        img = torch.from_numpy(img).to(cuda)
+        return lambda: orb.detect_levels(img, None, cfg), cfg.n_levels + 1
+    if entry is tpo.POSE_LM:
+        args, bird = _on(cuda, *_pose_problem(0, 500, 100))
+        return lambda: tpo.optimize_pose(*args, FX, FY, CX, CY, **bird), 1
+    A = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 3, 3)).astype(np.float32)).to(cuda)
+    if entry is linalg.SVD:
+        return lambda: linalg.svd_small(A), 1
+    if entry is linalg.EIGH:
+        sym = A + A.transpose(1, 2)
+        return lambda: linalg.eigh_small(sym), 1
+    return lambda: build.launch(linalg.EMPTY, cuda), 1
+
+
+def _kernels_under(event):
+    """The device kernels launched by a host-side profiler event and
+    everything it called."""
+    return len(event.kernels) + sum(_kernels_under(c)
+                                    for c in event.cpu_children)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ENTRY_POINTS,
+                         ids=[e.name for e in ENTRY_POINTS])
+def test_entry_point_kernels_are_linked_to_its_range(cuda, entry):
+    """One C call of each kernel entry point under torch.profiler: the
+    call's kernels are linked to one host range of the entry point's name,
+    through which a caller's span counts them, and the call is counted
+    once. A profiler session after the process's first can lose the first
+    kernels it sees, so the session opens on a burst of small kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, n_kernels = _entry_point_call(entry, cuda)
+    call()
+    burst = torch.zeros(1, device=cuda)
+    torch.cuda.synchronize()
+    before = _launches(entry)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):
+            burst.add_(1.0)
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    ranges = [ev for ev in prof.events()
+              if ev.device_type == DeviceType.CPU and ev.name == entry.name]
+    assert len(ranges) == 1, sorted({ev.name for ev in prof.events()})
+    assert _kernels_under(ranges[0]) == n_kernels
+    assert _launches(entry) == before + 1

@@ -102,7 +102,7 @@ def test_plan_lays_out_the_plain_slots():
 def test_detect_takes_only_cuda_tensors():
     img, _, cfg = odc.case("flat")
     plan = orb._detect_plan(*img.shape, None, cfg, CPU)
-    before = detect_kernel.LAUNCHES
+    before = build.LAUNCHES[detect_kernel.DETECT.name]
     with pytest.raises(ValueError):
         detect_kernel.detect(torch.from_numpy(img), None, plan)
-    assert detect_kernel.LAUNCHES == before
+    assert build.LAUNCHES[detect_kernel.DETECT.name] == before

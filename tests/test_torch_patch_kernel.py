@@ -17,6 +17,7 @@ import torch
 from orbslam_birdview_tpu.frontend import patch_kernel as jpk
 from orbslam_birdview_tpu_torch.frontend import orb as torb
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
+from orbslam_birdview_tpu_torch.utils import build
 
 S = 48
 
@@ -83,10 +84,10 @@ def test_negative_start_divergence(rng):
 def test_cpu_tensors_take_the_plain_version(rng):
     img = _image(rng)
     ys, xs = _starts(rng, *img.shape, n=5)
-    before = tpk.LAUNCHES
+    before = build.LAUNCHES[tpk.GATHER.name]
     out = tpk.gather_patches(torch.from_numpy(img), torch.from_numpy(ys),
                              torch.from_numpy(xs), S)
-    assert tpk.LAUNCHES == before
+    assert build.LAUNCHES[tpk.GATHER.name] == before
     assert out.shape == (5, S, S) and out.dtype == torch.float32
 
 
@@ -176,9 +177,9 @@ def test_one_level_is_the_one_level_case(rng):
 
 def test_levels_on_cpu_take_the_plain_version(rng):
     imgs, ys_l, xs_l = _levels(rng, 4)
-    before = tpk.LAUNCHES
+    before = build.LAUNCHES[tpk.GATHER.name]
     out = _port_levels(imgs, ys_l, xs_l)
-    assert tpk.LAUNCHES == before
+    assert build.LAUNCHES[tpk.GATHER.name] == before
     assert out.shape[0] == sum(y.shape[0] for y in ys_l)
 
 

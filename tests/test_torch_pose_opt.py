@@ -81,13 +81,13 @@ def test_optimize_pose_on_cpu_builds_no_kernel(rng, monkeypatch):
         raise AssertionError("optimize_pose on the CPU looked for nvcc")
 
     monkeypatch.setattr(build, "find_nvcc", no_nvcc)
-    loaded, launches = dict(build.LOADED), tpo.LAUNCHES
+    loaded, launches = dict(build.LOADED), build.LAUNCHES.copy()
     mono, bird, _ = _problem(rng)
     out = tpo.optimize_pose(*[torch.from_numpy(np.array(x)) for x in mono],
                             FX, FY, CX, CY,
                             **{k: torch.from_numpy(v) for k, v in bird.items()})
     assert out.R.device.type == "cpu"
-    assert build.LOADED == loaded and tpo.LAUNCHES == launches
+    assert build.LOADED == loaded and build.LAUNCHES == launches
 
 
 def test_build_normal_eq_parity(rng):

@@ -24,6 +24,7 @@ import chip_smoke as smoke  # noqa: E402
 from orbslam_birdview_tpu_torch.frontend import patch_kernel  # noqa: E402
 from orbslam_birdview_tpu_torch.graph import (  # noqa: E402
     ba, ba_large, pose_graph, segsum)
+from orbslam_birdview_tpu_torch.utils import build  # noqa: E402
 
 SOLVERS = (ba, ba_large, pose_graph)
 
@@ -68,7 +69,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     card = smoke.card_line()
-    patch_kernel._kernel()
+    build.load_library(*patch_kernel.LIBRARY)
     drive = smoke.render_drive(smoke.SYSTEM_FRAMES)
     runs = [run(layout, drive, dev) for layout in (
         IndexAddSum, segsum.SegmentSum, segsum.SegmentSum, IndexAddSum)]
