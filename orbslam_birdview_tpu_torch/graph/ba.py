@@ -18,6 +18,20 @@ The LM loop has a fixed length and accepts or rejects each step with
 `torch.where` on a device flag: no host sync. The scatter sums go through
 `segsum.SegmentSum`, whose layouts are built once per problem: a BA run
 twice on the card gives the same bits.
+
+On a CUDA device the LM (~10,600 small kernels a BA) runs as CUDA graphs
+captured at a problem shape's first call and replayed at every later one:
+issued op by op, the host took as long to launch the kernels as the device
+took to run them. A shape has four graphs (`_LM`): the set-up, ONE LM
+iteration, replayed for each of the 15, the re-classification between the
+phases and the final classification. (The whole LM as one graph took
+~2.5× its eager run to capture and instantiate, too much for a set-up that
+captures 15 buckets.) The graphs live in a process-wide cache (`_GRAPHS`),
+so every `System` of a process shares them; `GRAPH_COUNTS` counts the
+shapes captured and the BAs replayed. Each call copies its inputs into the
+graphs' own input buffers and returns clones of their outputs, so a result
+is never overwritten by a later replay and the caller's tensors are never
+written. On the CPU the same pieces run eagerly.
 """
 from __future__ import annotations
 
@@ -269,14 +283,248 @@ def _schur_solve(Hcc, bc, Hpp, bp, W, lam, cam_free, pt_free, C, P):
     return dxc.reshape(C, 6), dxp
 
 
+# the dtype the LM takes each input in: the camera and point arrays, then
+# the fields of each edge set
+_ARRAY_DTYPES = (torch.float32, torch.float32, torch.bool, torch.bool,
+                 torch.float32, torch.bool)
+_EDGE_DTYPES = EdgeSet(torch.long, torch.long, torch.float32, torch.float32,
+                       torch.bool)
+
+
+def _fields(problem) -> list:
+    """(cam_R, cam_t, cam_fixed, cam_valid, points, point_valid, mono,
+    stereo, bird) as one flat list: the six arrays, then the fields of each
+    edge set that is present."""
+    flat = list(problem[:6])
+    for es in problem[6:]:
+        if es is not None:
+            flat.extend(es)
+    return flat
+
+
+def _unflatten(flat, present) -> tuple:
+    """`_fields`' inverse, for the edge sets marked in `present`."""
+    it = iter(flat)
+    arrays = tuple(next(it) for _ in range(6))
+    return arrays + tuple(
+        EdgeSet(*(next(it) for _ in EdgeSet._fields)) if p else None
+        for p in present)
+
+
 def _edges_on(es: Optional[EdgeSet], dev) -> Optional[EdgeSet]:
     if es is None:
         return None
-    return EdgeSet(torch.as_tensor(es.cam, device=dev).long(),
-                   torch.as_tensor(es.pt, device=dev).long(),
-                   torch.as_tensor(es.obs, dtype=torch.float32, device=dev),
-                   torch.as_tensor(es.info, dtype=torch.float32, device=dev),
-                   torch.as_tensor(es.valid, dtype=torch.bool, device=dev))
+    return EdgeSet(*(torch.as_tensor(x, dtype=dt, device=dev)
+                     for x, dt in zip(es, _EDGE_DTYPES)))
+
+
+def _dtypes(present) -> list:
+    return _fields((*_ARRAY_DTYPES,
+                    *(_EDGE_DTYPES if p else None for p in present)))
+
+
+class _LM:
+    """The LM of one problem, in four pieces that keep its state in place:
+    `start` once, `step` once an LM iteration, `between` between the two
+    phases and `finish` at the end (`_run`). In that order they are
+    ORB-SLAM2's 5 + 10 iteration local BA, op for op; on a CUDA device each
+    piece is captured once a problem shape and replayed. The inputs are
+    tensors of one device in the dtypes of `_ARRAY_DTYPES` and
+    `_EDGE_DTYPES`. No piece reads anything back to the host or copies
+    anything to the device."""
+
+    def __init__(self, cam_R, cam_t, cam_fixed, cam_valid, points,
+                 point_valid, mono, stereo, bird, intr, reclassify):
+        self.inputs = (cam_R, cam_t, cam_fixed, cam_valid, points,
+                       point_valid)
+        self.sets = [("mono", mono), ("stereo", stereo), ("bird", bird)]
+        self.intr, self.reclassify = intr, reclassify
+        # the state handed from piece to piece: the iterate, the damping,
+        # the cost and the edges the phase counts
+        self.cam_R, self.cam_t, self.points = (
+            torch.empty_like(x) for x in (cam_R, cam_t, points))
+        self.lam = torch.empty((), dtype=cam_R.dtype, device=cam_R.device)
+        self.cost = torch.empty_like(self.lam)
+        self.valid = [None if es is None else torch.empty_like(es.valid)
+                      for _, es in self.sets]
+
+    def _phase_sets(self):
+        return [(kind, None if es is None else es._replace(valid=v))
+                for (kind, es), v in zip(self.sets, self.valid)]
+
+    def _new_phase(self):
+        self.lam.fill_(1e-4)
+        self.cost.zero_()
+
+    def start(self):
+        cam_R, cam_t, cam_fixed, cam_valid, points, point_valid = self.inputs
+        dev = cam_R.device
+        C = cam_R.shape[0]
+        P = points.shape[0]
+        self.cam_free = cam_valid & ~cam_fixed
+        # points referenced by no valid edge must be frozen
+        n_refs = torch.zeros((P,), dtype=torch.int32, device=dev)
+        for _, es in self.sets:
+            if es is not None:
+                n_refs.index_add_(0, es.pt, es.valid.to(torch.int32))
+        self.pt_free = point_valid & (n_refs > 0)
+        # the edges stay fixed across every iteration: one layout per problem
+        self.lay = layouts(self.sets, C, P)
+        for dst, src in ((self.cam_R, cam_R), (self.cam_t, cam_t),
+                         (self.points, points)):
+            dst.copy_(src)
+        for v, (_, es) in zip(self.valid, self.sets):
+            if v is not None:
+                v.copy_(es.valid)
+        self._new_phase()
+
+    def step(self):
+        """One LM iteration, Huber-weighted, accepted or rejected on the
+        device."""
+        msets, intr, lay = self._phase_sets(), self.intr, self.lay
+        cam_R, cam_t, points, lam = self.cam_R, self.cam_t, self.points, \
+            self.lam
+        C, P = lay.cam.n, lay.pt.n
+        Hcc, bc, Hpp, bp, W, cost0 = _assemble(
+            cam_R, cam_t, points, msets, intr, True, lay)
+        dxc, dxp = _schur_solve(
+            Hcc, bc, Hpp, bp, W, lam, self.cam_free, self.pt_free, C, P)
+        Rn, tn = lie.se3_update_left(cam_R, cam_t, dxc)
+        pn = points + dxp
+        cost1 = _cost_only(Rn, tn, pn, msets, intr, True)
+        # gate on the STEP's finiteness, not just cost1: a NaN pose
+        # fails the z>0 depth check, silently dropping its edges from
+        # cost1 — a NaN state can otherwise look like a cost decrease
+        ok = ((cost1 < cost0) & torch.isfinite(cost1)
+              & torch.isfinite(dxc).all() & torch.isfinite(dxp).all())
+        cam_R.copy_(torch.where(ok, Rn, cam_R))
+        cam_t.copy_(torch.where(ok, tn, cam_t))
+        points.copy_(torch.where(ok, pn, points))
+        lam.copy_(torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0),
+                              1e-9, 1e8))
+        # the ACCEPTED state's cost (cost0 if the step was rejected),
+        # not the candidate's
+        self.cost.copy_(torch.where(ok, cost1, cost0))
+
+    def _masks(self, sets):
+        return [None if es is None else _classify(
+            kind, self.cam_R, self.cam_t, self.points, es, self.intr)
+            for kind, es in sets]
+
+    def between(self):
+        """Outlier re-classification between the phases; the second phase
+        starts its damping and cost afresh."""
+        if self.reclassify:
+            for v, m in zip(self.valid, self._masks(self._phase_sets())):
+                if v is not None:
+                    v.copy_(m)
+        self._new_phase()
+
+    def finish(self) -> BAResult:
+        # final classification is against the ORIGINAL edge sets: an edge
+        # excluded between phases re-qualifies if consistent with the
+        # final state
+        m_mono, m_stereo, m_bird = self._masks(self.sets)
+        empty = torch.zeros((0,), dtype=torch.bool, device=self.lam.device)
+        return BAResult(
+            self.cam_R,
+            self.cam_t,
+            self.points,
+            m_mono if m_mono is not None else empty,
+            m_stereo if m_stereo is not None else empty,
+            m_bird if m_bird is not None else empty,
+            self.cost,
+        )
+
+
+def _run(start, step, between, finish, iters_phase1, iters_phase2):
+    """The LM's pieces in order: run eagerly, or their graphs replayed."""
+    start()
+    for _ in range(iters_phase1):
+        step()
+    between()
+    for _ in range(iters_phase2):
+        step()
+    return finish()
+
+
+class _Graphs(NamedTuple):
+    """One problem shape's LM pieces captured as CUDA graphs."""
+
+    start: "torch.cuda.CUDAGraph"
+    step: "torch.cuda.CUDAGraph"
+    between: "torch.cuda.CUDAGraph"
+    finish: "torch.cuda.CUDAGraph"
+    inputs: list        # the input buffers, in `_fields`' order
+    outputs: BAResult   # `finish`'s result, rewritten by every run
+    lm: _LM             # keeps alive every tensor the graphs hand on
+
+
+# (device, edge sets present, every input's shape, intrinsics,
+# reclassify) -> _Graphs; bounded by the callers' pow2 problem buckets
+_GRAPHS: dict = {}
+# device -> (capture stream, memory pool), shared by the device's graphs
+_CAPTURE: dict = {}
+# problem shapes captured, and BAs run as graph replays
+GRAPH_COUNTS = {"capture": 0, "replay": 0}
+
+
+def _capture(dev, srcs, present, intr, reclassify) -> _Graphs:
+    """Capture the LM's pieces for new input buffers that hold `srcs`.
+
+    A device's graphs share one capture stream and one memory pool. That
+    is safe because every BA replays its four graphs back to back on the
+    caller's stream, its first graph computes everything its others read
+    (apart from the inputs, which are no graph's memory), and its outputs
+    are cloned before another BA's graphs run. The first capture on a
+    device runs the LM once eagerly on the capture stream before it, so
+    that the libraries' handles and workspaces exist before any capture."""
+    inputs = [torch.empty(s.shape, dtype=dt, device=dev).copy_(s)
+              for s, dt in zip(srcs, _dtypes(present))]
+    lm = _LM(*_unflatten(inputs, present), intr, reclassify)
+    pieces = (lm.start, lm.step, lm.between, lm.finish)
+    if dev not in _CAPTURE:
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            _run(*pieces, 1, 1)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        _CAPTURE[dev] = (stream, torch.cuda.graph_pool_handle())
+    stream, pool = _CAPTURE[dev]
+    graphs = []
+    for piece in pieces:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            outputs = piece()
+        graphs.append(graph)
+    GRAPH_COUNTS["capture"] += 1
+    return _Graphs(*graphs, inputs, outputs, lm)
+
+
+def _replay(dev, problem, intr, iters_phase1, iters_phase2,
+            reclassify) -> BAResult:
+    """The LM on `dev` as its problem shape's graphs: captured at the
+    shape's first call; the inputs copied in, the graphs replayed, the
+    outputs cloned out."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    srcs = [torch.as_tensor(x) for x in _fields(problem)]
+    present = tuple(es is not None for es in problem[6:])
+    key = (dev, present, tuple(tuple(s.shape) for s in srcs), intr,
+           reclassify)
+    with torch.cuda.device(dev):
+        g = _GRAPHS.get(key)
+        if g is None:
+            g = _GRAPHS[key] = _capture(dev, srcs, present, intr,
+                                        reclassify)
+        else:
+            for buf, src in zip(g.inputs, srcs):
+                buf.copy_(src)
+        _run(g.start.replay, g.step.replay, g.between.replay,
+             g.finish.replay, iters_phase1, iters_phase2)
+        GRAPH_COUNTS["replay"] += 1
+        return BAResult(*(x.clone() for x in g.outputs))
 
 
 def bundle_adjust(
@@ -300,89 +548,24 @@ def bundle_adjust(
     device=None,
 ) -> BAResult:
     """Levenberg-Marquardt BA with Schur elimination, on `device` (`cuda`
-    unless given).
+    unless given): on a CUDA device as its problem shape's CUDA graphs,
+    replayed on the current stream (a device's graphs share one memory
+    pool, so calls on one device must not overlap on two streams), eagerly
+    on the CPU. The result's tensors are the call's own.
 
     cam poses are Tcw; `cam_fixed` marks frontier/anchor keyframes whose
     poses must not move. Landmarks: one combined array (front 3D points
     then BEV points); each edge indexes it via `pt`."""
     dev = resolve_device(device)
-
-    def on(x, dtype):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
-
-    cam_R, cam_t, points = (on(x, torch.float32)
-                            for x in (cam_R, cam_t, points))
-    cam_fixed, cam_valid, point_valid = (
-        on(x, torch.bool) for x in (cam_fixed, cam_valid, point_valid))
-    mono, stereo, bird = (_edges_on(es, dev) for es in (mono, stereo, bird))
-    C = cam_R.shape[0]
-    P = points.shape[0]
-    dtype = cam_R.dtype
+    problem = (cam_R, cam_t, cam_fixed, cam_valid, points, point_valid,
+               mono, stereo, bird)
     intr = (fx, fy, cx, cy, bf)
-    cam_free = cam_valid & ~cam_fixed
-    # points referenced by no valid edge must be frozen
-    n_refs = torch.zeros((P,), dtype=torch.int32, device=dev)
-    for es in (mono, stereo, bird):
-        if es is not None:
-            n_refs.index_add_(0, es.pt, es.valid.to(torch.int32))
-    pt_free = point_valid & (n_refs > 0)
-
-    msets = [("mono", mono), ("stereo", stereo), ("bird", bird)]
-    # the edges stay fixed across every iteration: one layout per problem
-    lay = layouts(msets, C, P)
-
-    def run_phase(state, n_iters, use_huber, msets):
-        cam_R, cam_t, points = state
-        lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-        cost = torch.zeros((), dtype=dtype, device=dev)
-        for _ in range(n_iters):
-            Hcc, bc, Hpp, bp, W, cost0 = _assemble(
-                cam_R, cam_t, points, msets, intr, use_huber, lay)
-            dxc, dxp = _schur_solve(
-                Hcc, bc, Hpp, bp, W, lam, cam_free, pt_free, C, P)
-            Rn, tn = lie.se3_update_left(cam_R, cam_t, dxc)
-            pn = points + dxp
-            cost1 = _cost_only(Rn, tn, pn, msets, intr, use_huber)
-            # gate on the STEP's finiteness, not just cost1: a NaN pose
-            # fails the z>0 depth check, silently dropping its edges from
-            # cost1 — a NaN state can otherwise look like a cost decrease
-            ok = ((cost1 < cost0) & torch.isfinite(cost1)
-                  & torch.isfinite(dxc).all() & torch.isfinite(dxp).all())
-            cam_R = torch.where(ok, Rn, cam_R)
-            cam_t = torch.where(ok, tn, cam_t)
-            points = torch.where(ok, pn, points)
-            lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0),
-                              1e-9, 1e8)
-            # the ACCEPTED state's cost (cost0 if the step was rejected),
-            # not the candidate's
-            cost = torch.where(ok, cost1, cost0)
-        return (cam_R, cam_t, points), cost
-
-    state = (cam_R, cam_t, points)
-    state, _ = run_phase(state, iters_phase1, True, msets)
-
-    # outlier re-classification between phases
-    def masks(state, sets):
-        return [None if es is None else _classify(kind, *state, es, intr)
-                for kind, es in sets]
-
-    if reclassify:
-        msets = [(kind, None if es is None else es._replace(valid=m))
-                 for (kind, es), m in zip(msets, masks(state, msets))]
-    state, cost = run_phase(state, iters_phase2, True, msets)
-
-    # final classification is against the ORIGINAL edge sets: an edge
-    # excluded between phases re-qualifies if consistent with the final state
-    m_mono, m_stereo, m_bird = masks(
-        state, [("mono", mono), ("stereo", stereo), ("bird", bird)])
-    cam_R, cam_t, points = state
-    empty = torch.zeros((0,), dtype=torch.bool, device=dev)
-    return BAResult(
-        cam_R,
-        cam_t,
-        points,
-        m_mono if m_mono is not None else empty,
-        m_stereo if m_stereo is not None else empty,
-        m_bird if m_bird is not None else empty,
-        cost,
-    )
+    if dev.type == "cuda":
+        return _replay(dev, problem, intr, iters_phase1, iters_phase2,
+                       reclassify)
+    arrays = (torch.as_tensor(x, dtype=dt, device=dev)
+              for x, dt in zip(problem[:6], _ARRAY_DTYPES))
+    lm = _LM(*arrays, *(_edges_on(es, dev) for es in problem[6:]), intr,
+             reclassify)
+    return _run(lm.start, lm.step, lm.between, lm.finish, iters_phase1,
+                iters_phase2)

@@ -13,6 +13,7 @@ import torch
 from orbslam_birdview_tpu_torch.core import linalg
 from orbslam_birdview_tpu_torch.frontend import detect_kernel
 from orbslam_birdview_tpu_torch.frontend import patch_kernel as tpk
+from orbslam_birdview_tpu_torch.graph import ba
 from orbslam_birdview_tpu_torch.graph import pose_opt as tpo
 from orbslam_birdview_tpu_torch.utils import build
 
@@ -623,3 +624,137 @@ def test_entry_point_kernels_are_linked_to_its_range(cuda, entry):
     assert len(ranges) == 1, sorted({ev.name for ev in prof.events()})
     assert _kernels_under(ranges[0]) == n_kernels
     assert _launches(entry) == before + 1
+
+
+# ---- the local BA as one CUDA graph a problem shape (graph/ba.py) ---------
+BF = 35.0
+
+
+def _ba_problem(cuda, P, E, seed, C=48):
+    """A local BA at `LocalMapper.prewarm`'s shapes for (C, P, E): E mono
+    edges, the stereo and bird sets padded to max(E // 4, 4096). A street:
+    cameras 0.12 m apart looking down it, two thirds of them free (the
+    first anchored), points 8-20 m ahead; every edge is its point's true
+    projection plus noise, a tenth of the mono edges 30 px off, the last
+    fifth of the mono set and half of each aux set padding. The free poses
+    start ~2 cm and ~0.3° off, the points ~5 cm. Returns (the positional
+    arguments of `bundle_adjust`, its keyword arguments)."""
+    rng = np.random.default_rng(seed)
+    Eb = max(E // 4, 4096)
+    R = np.stack([_rodrigues(rng.normal(0, 0.01, 3)) for _ in range(C)])
+    centres = np.stack([np.zeros(C), np.zeros(C), 0.12 * np.arange(C)], 1)
+    t = -np.einsum("cij,cj->ci", R, centres)
+    X = np.concatenate([rng.uniform(-6, 6, (P, 1)), rng.uniform(-2, 2, (P, 1)),
+                        rng.uniform(8, 20, (P, 1))], 1)
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    fixed[C * 2 // 3:] = True
+
+    def edges(n, kind):
+        cam, pt = rng.integers(0, C, n), rng.integers(0, P, n)
+        Xc = np.einsum("nij,nj->ni", R[cam], X[pt]) + t[cam]
+        u = FX * Xc[:, 0] / Xc[:, 2] + CX
+        v = FY * Xc[:, 1] / Xc[:, 2] + CY
+        if kind == "mono":
+            obs = np.stack([u, v], 1) + rng.normal(0, 0.5, (n, 2))
+            obs[rng.random(n) < 0.1] += 30.0
+            valid = np.arange(n) < n * 4 // 5
+        elif kind == "stereo":
+            obs = (np.stack([u, v, u - BF / Xc[:, 2]], 1)
+                   + rng.normal(0, 0.5, (n, 3)))
+            valid = rng.random(n) < 0.5
+        else:
+            obs = Xc + rng.normal(0, 0.01, (n, 3))
+            valid = rng.random(n) < 0.5
+        info = 400.0 if kind == "bird" else 1.0 / 1.2 ** (
+            2 * rng.integers(0, 3, n))
+        return ba.EdgeSet(
+            torch.as_tensor(cam.astype(np.int32), device=cuda),
+            torch.as_tensor(pt.astype(np.int32), device=cuda),
+            torch.as_tensor(obs.astype(np.float32), device=cuda),
+            torch.as_tensor(np.broadcast_to(info, (n,)).astype(np.float32),
+                            device=cuda),
+            torch.as_tensor(valid, device=cuda))
+
+    free = ~fixed
+    Rp = R.copy()
+    Rp[free] = np.stack([_rodrigues(rng.normal(0, 0.003, 3)) @ r
+                         for r in R[free]])
+    tp = t + free[:, None] * rng.normal(0, 0.02, (C, 3))
+    Xp = X + rng.normal(0, 0.05, X.shape)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+    args = (f32(Rp), f32(tp), torch.as_tensor(fixed, device=cuda),
+            torch.ones(C, dtype=torch.bool, device=cuda), f32(Xp),
+            torch.ones(P, dtype=torch.bool, device=cuda),
+            edges(E, "mono"), edges(Eb, "stereo"), edges(Eb, "bird"))
+    return args, dict(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, iters_phase1=5,
+                      iters_phase2=10, device=cuda)
+
+
+BA_FIELDS = ("cam_R", "cam_t", "points", "inl_mono", "inl_stereo",
+             "inl_bird", "cost")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,E", [(1024, 2048), (4096, 16384)])
+def test_ba_graph_replay_matches_the_eager_lm(cuda, P, E):
+    """A ladder bucket's BA by graph replay against the same LM issued op
+    by op on the same inputs: the inlier masks equal and the state and
+    cost bit for bit (the same kernels on the same data)."""
+    args, kw = _ba_problem(cuda, P, E, seed=P + E)
+    first = ba.bundle_adjust(*args, **kw)
+    got = ba.bundle_adjust(*args, **kw)
+    lm = ba._LM(*args[:6], *(ba._edges_on(es, cuda) for es in args[6:]),
+                (FX, FY, CX, CY, BF), True)
+    want = ba._run(lm.start, lm.step, lm.between, lm.finish, 5, 10)
+    torch.cuda.synchronize()
+    for name in BA_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name), getattr(first, name)), name
+    # the LM moved the free poses and kept the mono edges that are not off
+    assert torch.isfinite(got.cost) and not torch.equal(got.cam_t, args[1])
+    assert 0.6 * E < int(got.inl_mono.sum()) <= 0.8 * E
+
+
+@pytest.mark.cuda
+def test_ba_graph_results_and_inputs_survive_the_next_replay(cuda):
+    """Two problems of one bucket back to back: the first call's result and
+    both calls' inputs are as they were after the second replay, and no
+    result shares memory with the graph or with another result."""
+    a, kw = _ba_problem(cuda, 1024, 2048, seed=11)
+    b, _ = _ba_problem(cuda, 1024, 2048, seed=12)
+    a_in = [x.clone() for x in ba._fields(a)]
+    b_in = [x.clone() for x in ba._fields(b)]
+    ra = ba.bundle_adjust(*a, **kw)
+    ra_then = [x.clone() for x in ra]
+    rb = ba.bundle_adjust(*b, **kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(ra.cam_R, rb.cam_R)
+    for x, y in zip(ra, ra_then):
+        assert torch.equal(x, y)
+    for was, x in zip(a_in + b_in, ba._fields(a) + ba._fields(b)):
+        assert torch.equal(was, x)
+    graph_ptrs = {x.data_ptr() for g in ba._GRAPHS.values()
+                  for x in (*g.inputs, *g.outputs) if x.numel()}
+    for x in (*ra, *rb):
+        assert x.numel() == 0 or x.data_ptr() not in graph_ptrs
+    assert not {x.data_ptr() for x in ra if x.numel()} & {
+        x.data_ptr() for x in rb if x.numel()}
+
+
+@pytest.mark.cuda
+def test_ba_graph_captured_once_for_a_shape_off_the_ladder(cuda):
+    """A problem shape no bucket has: its first call captures one graph and
+    replays it, its second only replays, both counted in the mapper's span
+    record."""
+    from types import SimpleNamespace
+
+    from orbslam_birdview_tpu_torch.pipeline.local_mapping import LocalMapper
+    from orbslam_birdview_tpu_torch.utils.profiling import StageTimer
+
+    args, kw = _ba_problem(cuda, 600, 1500, seed=13, C=7)
+    mapper = SimpleNamespace(timer=StageTimer())
+    for n in (1, 2):
+        LocalMapper._bundle_adjust(mapper, *args, **kw)
+        assert mapper.timer.counters["map.ba_graph_capture"] == 1
+        assert mapper.timer.counters["map.ba_graph_replay"] == n

@@ -151,6 +151,28 @@ def test_local_ba_writeback_and_outlier_removal(moment):
     assert ps.big_change_idx == js.big_change_idx
 
 
+def test_local_ba_reaches_bundle_adjust_through_its_module(moment,
+                                                          monkeypatch):
+    """The benchmark's check wraps `ba.bundle_adjust` where the mapper
+    looks it up: a local BA calls the module's attribute once. On CPU
+    tensors the BA runs eagerly: no CUDA graph is captured or counted."""
+    _, pm = mappers(moment)
+    calls = []
+    solve = lm.ba.bundle_adjust
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("device"))
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(lm.ba, "bundle_adjust", counted)
+    pm.local_ba(moment["kf"])
+    assert calls == [pm.device] and pm.stats["ba_landed"] == 1
+    assert lm.ba._GRAPHS == {} and lm.ba._CAPTURE == {}
+    assert lm.ba.GRAPH_COUNTS == {"capture": 0, "replay": 0}
+    assert not any(name.startswith("map.ba_graph")
+                   for name in pm.timer.counters)
+
+
 @pytest.mark.parametrize("redundancy", [0.9, 0.3])
 def test_cull_keyframes(moment, redundancy):
     """The reference's 90 % rule, and a loose 30 % that culls."""
